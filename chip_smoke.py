@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (paramugsy_tpu_torch) on one GPU.
+
+Run from the repository root on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases; any failed check raises, so the script exits non-zero before the
+result line:
+
+1. Card and build: prints the card's name and power limit, builds the
+   CUDA kernels from ``paramugsy_tpu_torch/csrc`` and, when missing, the
+   native host library from ``native/``.
+2. Kernels against their plain PyTorch versions, on the card: K1
+   (wavefront DP) and K2 (traceback) at the long-segment engine's bench
+   shape (64 pairs x 16 kb, W = 512) and at every wider band the width
+   doubling reaches, W = 1024 ... 32768 (past 16384 the rows leave
+   shared memory).  Buffers must be bit-identical; every pair must equal
+   the native banded engine.
+3. Headline pair through the port's ``nucmer`` CLI: the 2 Mbp pair of
+   ``build_pair`` (bench.py's recipe); the delta body must equal the JAX
+   reference's, and the segments must have run on the native NW engine.
+4. Island pair: a 2 Mbp pair with random 5 kb query windows, aligned
+   with ``break_len=2048`` so that long segments reach K1 and K2; the
+   entries must equal the JAX reference's.
+
+Launch counters are zeroed before phase 3 and read after phase 4.  The
+script imports only the port (``paramugsy_tpu_torch``), never JAX or the
+JAX package directly.  Without a CUDA device it exits 2.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# sha256 of the delta bodies (everything after the two header lines) that
+# the JAX reference (paramugsy_tpu, JAX_PLATFORMS=cpu) produces from the
+# same inputs: its nucmer CLI on the headline FASTA files, and its
+# align_pair + DeltaWriter on the island pair.  Computed at commit a259b7f;
+# paramugsy_tpu is unchanged since.
+HEADLINE_DELTA_SHA256 = (
+    "6300135616f5c9d89e045b6830371461b89f1b5d4df0506c99fe7ad75028f86c"
+)
+ISLAND_DELTA_SHA256 = (
+    "2b0f4368f681e34baae1efc82ed970c88203947476889c1837cd5cc7ca10dfab"
+)
+# Long segments (> 4096 bp) per island-pair run in the reference.
+ISLAND_LONG_SEGMENTS = 4
+
+HEADLINE_BP = 2_000_000
+ISLAND_BREAK_LEN = 2048
+
+
+def build_pair(rng, n):
+    """bench.py's pair: `n` random bases, 1% substitutions, a 12 bp
+    deletion, a 9 bp insertion and one 20 kb inversion."""
+    ref = rng.integers(0, 4, size=n).astype(np.int8)
+    q = ref.copy()
+    subs = rng.random(n) < 0.01
+    q[subs] = ((q[subs] + rng.integers(1, 4, size=int(subs.sum()))) % 4).astype(np.int8)
+    q = np.concatenate([q[: n // 3], q[n // 3 + 12 :]])
+    ins = rng.integers(0, 4, size=9).astype(np.int8)
+    q = np.concatenate([q[: n // 2], ins, q[n // 2 :]])
+    a, b = 2 * n // 3, 2 * n // 3 + 20000
+    inv = (3 - q[a:b])[::-1].copy()
+    q = np.concatenate([q[:a], inv, q[b:]])
+    return ref, q
+
+
+def headline_fastas(directory: str) -> tuple[str, str]:
+    """Write the bench pair (build_pair, seed 12345) as FASTA."""
+    ref, query = build_pair(np.random.default_rng(12345), HEADLINE_BP)
+    paths = []
+    for name, codes in (("smoke_ref", ref), ("smoke_qry", query)):
+        path = os.path.join(directory, f"{name}.fa")
+        with open(path, "w") as f:
+            f.write(f">{name}.chr\n")
+            f.write(np.frombuffer(b"ACGT", np.uint8)[codes].tobytes().decode())
+            f.write("\n")
+        paths.append(path)
+    return paths[0], paths[1]
+
+
+def island_pair(n: int = HEADLINE_BP, n_islands: int = 4, length: int = 5000):
+    """A bench-style pair whose query has `n_islands` windows of random
+    sequence: each leaves an inter-anchor segment longer than 4096 bp."""
+    rng = np.random.default_rng(2026)
+    ref, query = build_pair(rng, n)
+    query = query.copy()
+    for s in np.linspace(n // 10, n - n // 10, n_islands).astype(int):
+        query[s : s + length] = rng.integers(0, 4, length)
+    return ref, query
+
+
+def delta_body(text: str) -> str:
+    """A delta file's text without its two header lines (input paths and
+    program name)."""
+    return text.split("\n", 2)[2]
+
+
+def aligned_bp(text: str) -> int:
+    """Alignment columns of a delta file: per entry the reference span
+    plus one column per negative offset (a gap in the reference row)."""
+    total = 0
+    for line in delta_body(text).splitlines():
+        fields = line.split()
+        if len(fields) == 7:
+            total += abs(int(fields[1]) - int(fields[0])) + 1
+        elif len(fields) == 1 and int(fields[0]) < 0:
+            total += 1
+    return total
+
+
+def sha256(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def kernel_pairs(rng, n_pairs: int, length: int, n_del: int, sub_rate: float = 0.02):
+    """bench.py's long-segment shape: `length` bp, `n_del` deletions,
+    `sub_rate` substitutions."""
+    pairs = []
+    for _ in range(n_pairs):
+        a = rng.integers(0, 4, size=length).astype(np.int8)
+        b = np.delete(a, rng.choice(length, n_del, replace=False)).copy()
+        m = rng.random(len(b)) < sub_rate
+        b[m] = ((b[m] + 1) % 4).astype(np.int8)
+        pairs.append((a, b))
+    return pairs
+
+
+def _cuda_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _once_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_kernels(pairs, device, reps: int) -> dict:
+    """K1 and K2 against their plain versions on one launch of `pairs`,
+    and every pair against the native banded engine."""
+    import torch
+
+    from paramugsy_tpu_torch.ops import wavefront as wf
+    from paramugsy_tpu_torch.ops.extend import align_long_segment
+
+    diff = max(abs(len(a) - len(b)) for a, b in pairs)
+    width = 512
+    while diff >= width // 2:
+        width *= 2
+    steps = -(-max(len(a) + len(b) for a, b in pairs) // 128) * 128
+    A, B, al, bl = wf.pack_pairs(pairs, device)
+    kw = dict(steps=steps, width=width)
+
+    dirs = wf.wavefront_dp(A, B, al, bl, **kw)
+    plain_dirs, k1_plain_ms = _once_ms(lambda: wf.wavefront_dp_plain(A, B, al, bl, **kw))
+    k1_err = int((dirs.long() - plain_dirs.long()).abs().max())
+    if not torch.equal(dirs, plain_dirs):
+        raise AssertionError(f"K1 differs from its plain version at W={width}")
+    k1_ms = _cuda_ms(lambda: wf.wavefront_dp(A, B, al, bl, **kw), reps)
+
+    tb = wf.wavefront_traceback(dirs, al, bl, width=width)
+    plain_tb, k2_plain_ms = _once_ms(
+        lambda: wf.wavefront_traceback_plain(dirs, al, bl, width=width)
+    )
+    k2_err = int((tb.long() - plain_tb.long()).abs().max())
+    if not torch.equal(tb, plain_tb):
+        raise AssertionError(f"K2 differs from its plain version at W={width}")
+    k2_ms = _cuda_ms(lambda: wf.wavefront_traceback(dirs, al, bl, width=width), reps)
+
+    host = tb.cpu().numpy()
+    for p, (a, b) in enumerate(pairs):
+        got = wf._runs_of_path_words(host[p, 1:], int(host[p, 0]))
+        if got != align_long_segment(a, b):
+            raise AssertionError(f"pair {p} differs from native at W={width}")
+    row = {
+        "pairs": len(pairs), "length": len(pairs[0][0]), "width": width,
+        "steps": steps, "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms,
+        "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
+        "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_err,
+    }
+    print("kernel_check", json.dumps(row), flush=True)
+    return row
+
+
+def build_native() -> None:
+    """Build native/ (chaining, NW and banded engines) when it is missing.
+
+    The compiler is named explicitly: an inherited $CXX can lack OpenMP,
+    which the Makefile's -fopenmp needs, and the reference's own loader
+    would then fall back to NumPy without a word."""
+    native_dir = os.path.join(ROOT, "native")
+    if os.path.exists(os.path.join(native_dir, "libpm_native.so")):
+        return
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise AssertionError("no C++ compiler on PATH for native/")
+    res = subprocess.run(
+        ["make", "-C", native_dir, f"CXX={cxx}"],
+        capture_output=True, text=True, timeout=600,
+    )
+    if res.returncode != 0:
+        raise AssertionError(f"make -C native failed:\n{res.stdout}{res.stderr}")
+
+
+def _engine_delta(before: dict) -> dict:
+    from paramugsy_tpu_torch.ops import engines
+
+    return {
+        k: v - before.get(k, 0) for k, v in engines.COUNTS.items()
+        if v != before.get(k, 0)
+    }
+
+
+def headline_phase(device) -> dict:
+    """The bench pair through the nucmer CLI: one warm-up, best of 3."""
+    import torch
+
+    from paramugsy_tpu_torch import cli
+    from paramugsy_tpu_torch.ops import engines
+
+    before = dict(engines.COUNTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_fa, qry_fa = headline_fastas(tmp)
+        out = os.path.join(tmp, "smoke.delta")
+        argv = [
+            "nucmer", "-ref_seq", ref_fa, "-query_seq", qry_fa,
+            "-out_delta", out, "-device", device.type,
+        ]
+        walls = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise AssertionError("nucmer CLI failed")
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with open(out) as f:
+            text = f.read()
+    if sha256(delta_body(text)) != HEADLINE_DELTA_SHA256:
+        raise AssertionError("headline delta differs from the JAX reference")
+    aligned = aligned_bp(text)
+    used = _engine_delta(before)
+    if not used.get(f"seedcluster-{device.type}"):
+        raise AssertionError(f"seeding did not run on {device.type}")
+    # The native library loaded: without it the segments would have run on
+    # the reference's NumPy NW (``numpy-nw``).
+    if not used.get("native-nw") or "numpy-nw" in used:
+        raise AssertionError(f"segments did not run on native NW: {used}")
+    best = min(walls[1:])
+    row = {
+        "first_s": walls[0], "warm_best_s": best, "aligned_bp": aligned,
+        "aligned_mbp_per_s": aligned / 1e6 / best, "engines": used,
+    }
+    print("headline", json.dumps(row), flush=True)
+    return row
+
+
+def island_phase(device) -> dict:
+    """The island pair through align_pair twice; long segments must go to
+    the wavefront engine and the entries equal the reference's."""
+    import torch
+
+    from paramugsy_tpu_torch.cli import delta_text
+    from paramugsy_tpu_torch.ops import engines
+    from paramugsy_tpu_torch.ops.align_pair import AlignConfig, align_pair
+
+    ref, query = island_pair()
+    cfg = AlignConfig(break_len=ISLAND_BREAK_LEN)
+    before = dict(engines.COUNTS)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        entries = align_pair(ref, query, "island.r", "island.q", cfg, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if sha256(delta_body(delta_text(entries))) != ISLAND_DELTA_SHA256:
+            raise AssertionError("island entries differ from the JAX reference")
+    used = _engine_delta(before)
+    if used.get("device-wavefront") != 2 * ISLAND_LONG_SEGMENTS:
+        raise AssertionError(
+            f"wavefront engine counted {used.get('device-wavefront')} long "
+            f"segments over two runs, expected {2 * ISLAND_LONG_SEGMENTS}"
+        )
+    row = {
+        "first_s": walls[0], "warm_s": walls[1], "entries": len(entries),
+        "engines": used,
+    }
+    print("island", json.dumps(row), flush=True)
+    return row
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+
+    # Phase 1: card and build.
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    from paramugsy_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    _kernels.library()
+    build_s = time.perf_counter() - t0
+    if os.path.exists(_kernels.LOG_PATH):
+        with open(_kernels.LOG_PATH) as f:
+            print(f.read().strip())
+    print(f"kernel build: {build_s:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    build_native()
+    print(f"native build: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # Phase 2: kernels against their plain versions, at the bench shape
+    # and at every band width up to one past shared memory's.
+    rng = np.random.default_rng(99)
+    bench_shape = check_kernels(kernel_pairs(rng, 64, 16384, 20), device, reps=5)
+    wide = [
+        check_kernels(kernel_pairs(rng, n_pairs, length, n_del), device, reps=3)
+        for n_pairs, length, n_del in (
+            (8, 6000, 300), (8, 6000, 700),
+            (2, 12000, 1500), (2, 12000, 3000), (2, 12000, 5000),
+            (2, 20000, 9000),
+        )
+    ]
+    widths = [bench_shape["width"]] + [r["width"] for r in wide]
+    if widths != [512, 1024, 2048, 4096, 8192, 16384, 32768]:
+        raise AssertionError(f"kernel checks reached widths {widths}")
+
+    from paramugsy_tpu_torch.ops import engines
+    from paramugsy_tpu_torch.ops import wavefront as wf
+
+    # The main path starts here: counters count only its launches.
+    engines.reset_counts()
+    wf.wavefront_dp.launches = 0
+    wf.wavefront_traceback.launches = 0
+    headline_phase(device)
+    island_phase(device)
+    launches = {
+        "wavefront_dp": wf.wavefront_dp.launches,
+        "wavefront_traceback": wf.wavefront_traceback.launches,
+    }
+    print("main_path_launches", json.dumps(launches), flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+
+    kernels = [
+        {
+            "name": "wavefront_dp",
+            "route": "cuda",
+            "source": "paramugsy_tpu_torch/csrc/wavefront.cu",
+            "replaces": "paramugsy_tpu/ops/pallas_extend.py:503",
+            "launches": launches["wavefront_dp"],
+            "max_abs_err": max(r["k1_max_abs_err"] for r in [bench_shape, *wide]),
+            "ms": bench_shape["k1_ms"],
+            "plain_ms": bench_shape["k1_plain_ms"],
+        },
+        {
+            "name": "wavefront_traceback",
+            "route": "cuda",
+            "source": "paramugsy_tpu_torch/csrc/traceback.cu",
+            "replaces": "paramugsy_tpu/ops/pallas_extend.py:726",
+            "launches": launches["wavefront_traceback"],
+            "max_abs_err": max(r["k2_max_abs_err"] for r in [bench_shape, *wide]),
+            "ms": bench_shape["k2_ms"],
+            "plain_ms": bench_shape["k2_plain_ms"],
+        },
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"card: {smi}", flush=True)
+    print(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {
+                    "platform": "gpu",
+                    "kind": torch.cuda.get_device_name(0),
+                    "count": torch.cuda.device_count(),
+                },
+            }
+        ),
+        flush=True,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,33 @@
+"""The reference's state -> the port's, so both packages compute from the
+same inputs.
+
+Takes reference objects as they are (dataclasses, numpy arrays, or JAX
+arrays, which numpy reads through ``np.asarray``) and never imports JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from paramugsy_tpu.ops.extend import Scoring
+from paramugsy_tpu_torch.ops.align_pair import AlignConfig
+
+
+def align_config(ref_cfg) -> AlignConfig:
+    """Reference `AlignConfig` -> port `AlignConfig` (same field values)."""
+    fields = dataclasses.asdict(ref_cfg)
+    fields["scoring"] = Scoring(**fields["scoring"])
+    return AlignConfig(**fields)
+
+
+def codes(arr, device: str | torch.device) -> torch.Tensor:
+    """A code array (numpy or reference device array) -> int8 tensor."""
+    return torch.from_numpy(np.asarray(arr, dtype=np.int8).copy()).to(device)
+
+
+def device_cache(ref_cache: dict, device: str | torch.device) -> dict:
+    """A reference `device_cache` ((name, length) -> padded device codes)
+    -> the port's cache of the same keys on `device`."""
+    return {key: codes(arr, device) for key, arr in ref_cache.items()}

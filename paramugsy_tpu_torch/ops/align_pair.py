@@ -1,0 +1,555 @@
+"""Pairwise genome alignment (counterpart of paramugsy_tpu.ops.align_pair,
+the ``mugsy_nucmer`` role).
+
+ref/query codes -> seeds + clusters of both strands (one pass of torch ops
+on the device, one transfer back) -> chains (host) -> inter-anchor gap
+alignment (native NW; long segments on the device wavefront kernels) ->
+delta entries.
+
+The host helpers (config, chains, entry assembly, post-filters) are
+copied from the reference, whose module imports JAX.  Sequences longer
+than ``cfg.window`` need the windowed path, which is not ported yet.
+"""
+from __future__ import annotations
+
+import logging
+from bisect import bisect_left
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from paramugsy_tpu.coords.range import Range
+from paramugsy_tpu.formats.delta import DeltaEntry
+from paramugsy_tpu.ops.extend import Scoring
+from paramugsy_tpu_torch.ops import engines
+from paramugsy_tpu_torch.ops.chaining import chain_clusters
+from paramugsy_tpu_torch.ops.encode import (
+    bucket_size,
+    encode,
+    revcomp_codes_np,
+    upload_codes,
+)
+from paramugsy_tpu_torch.ops.extend import align_segments_spans
+from paramugsy_tpu_torch.ops.seeding import (
+    auto_sample_shift,
+    seed_cluster_both_packed,
+    unpack_seed_clusters,
+)
+from paramugsy_tpu_torch.utils.platform import resolve_device
+
+log = logging.getLogger("paramugsy.align")
+
+
+@dataclass
+class AlignConfig:
+    """The reference's AlignConfig (same fields, same defaults)."""
+
+    k: int = 15
+    min_match: int = 20  # nucmer -l
+    max_gap: int = 90  # nucmer -g
+    band: int = 16
+    min_cluster: int = 65  # nucmer -c
+    break_len: int = 200  # nucmer -b
+    max_seeds: int = 1 << 15
+    max_seeds_cap: int = 1 << 18
+    seed_sample_shift: int | None = None
+    seed_merge_gap: int | None = None
+    pin_max_seeds: int | None = None
+    max_clusters: int = 4096
+    unique_in_query: bool = False  # nucmer --mum vs --mumreference
+    scoring: Scoring = field(default_factory=Scoring)
+    post_filter: str | None = None  # None, "one_to_one" or "colinear"
+    window: int = 1 << 22
+    window_overlap: int = 1 << 17
+
+
+@dataclass
+class RawChain:
+    """A chained set of anchors in (0-based, strand-local) coordinates."""
+
+    seeds: np.ndarray  # [n, 3] rpos, qpos, len; sorted, non-overlapping
+    reverse: bool
+    break_len: int = 200
+
+
+def effective_break(cfg: AlignConfig, shift: int) -> int:
+    """Part-split / chain-join gap threshold, scaled by sample density."""
+    return cfg.break_len << shift
+
+
+def resolve_sample_shift(cfg: AlignConfig, n_ref: int, n_q: int) -> int:
+    if cfg.seed_sample_shift is not None:
+        return int(cfg.seed_sample_shift)
+    return auto_sample_shift(n_ref + n_q)
+
+
+def initial_max_seeds(cfg: AlignConfig, n_ref: int, n_q: int) -> int:
+    """Seed-bucket start size, adapted to the pair's bucket."""
+    if cfg.pin_max_seeds is not None:
+        return int(cfg.pin_max_seeds)
+    bucket = max(bucket_size(n_ref), bucket_size(n_q))
+    if resolve_sample_shift(cfg, n_ref, n_q):
+        return int(min(cfg.max_seeds, max(4096, bucket >> 9)))
+    return int(min(cfg.max_seeds, max(4096, bucket >> 6)))
+
+
+def transfer_slice(
+    cfg: AlignConfig, shift: int, max_seeds: int
+) -> tuple[int | None, int | None]:
+    """(m_out, c_out) output-slice sizes: sampled seeding slices to 2048
+    seeds + 512 cluster summaries; truncation is detected and refetched."""
+    if not shift:
+        return None, None
+    return min(max_seeds, 2048), min(cfg.max_clusters, 512)
+
+
+def _chain_seeds_all(
+    ref_codes: torch.Tensor, q_codes: torch.Tensor, q_len: int, cfg: AlignConfig
+) -> list[RawChain]:
+    """Seeds of both strands -> chains per strand, with the reference's
+    retry ladder: a sample-buffer overflow redoes the pair unsampled, a
+    too-small output slice refetches full-size, and a seed-bucket
+    overflow doubles the bucket up to `max_seeds_cap`."""
+    device = ref_codes.device
+    max_seeds = initial_max_seeds(cfg, ref_codes.shape[0], q_codes.shape[0])
+    shift = resolve_sample_shift(cfg, ref_codes.shape[0], q_codes.shape[0])
+    m_out, c_out = transfer_slice(cfg, shift, max_seeds)
+    while True:
+        engines.record_seedcluster(device)  # one count per actual dispatch
+        packed = seed_cluster_both_packed(
+            ref_codes,
+            q_codes,
+            q_len,
+            k=cfg.k,
+            max_seeds=max_seeds,
+            unique_in_query=cfg.unique_in_query,
+            min_match=cfg.min_match,
+            band=cfg.band,
+            max_gap=cfg.max_gap,
+            max_clusters=cfg.max_clusters,
+            sample_shift=shift,
+            merge_gap=cfg.seed_merge_gap,
+            m_out=m_out,
+            c_out=c_out,
+        ).cpu().numpy()
+        _, n_runs, samp_over, m_compute, strands = unpack_seed_clusters(
+            packed, max_seeds, cfg.max_clusters
+        )
+        if samp_over and shift:
+            log.warning("sample buffer overflow; redoing pair unsampled")
+            shift = 0
+            m_out, c_out = transfer_slice(cfg, shift, max_seeds)
+            continue
+        if any(s.truncated for s in strands) and m_out is not None:
+            log.warning(
+                "sliced transfer overflow (m_out=%s); refetching full", m_out
+            )
+            m_out = c_out = None
+            continue
+        if n_runs <= m_compute or max_seeds >= cfg.max_seeds_cap:
+            if any(s.truncated for s in strands):
+                log.warning(
+                    "cluster bucket overflow (max_clusters=%d); keeping "
+                    "the first summaries", cfg.max_clusters,
+                )
+            break
+        if cfg.pin_max_seeds is not None:
+            log.warning(
+                "seed bucket pinned at %d but %d merged runs; truncating",
+                max_seeds, n_runs,
+            )
+            break
+        max_seeds = min(
+            cfg.max_seeds_cap, max(max_seeds * 2, 1 << (n_runs - 1).bit_length())
+        )
+        m_out, c_out = transfer_slice(cfg, shift, max_seeds)
+    return _chains_of_strands(strands, cfg, effective_break(cfg, shift))
+
+
+def _chains_of_strands(
+    strands, cfg: AlignConfig, eff_break: int | None = None
+) -> list[RawChain]:
+    """Per-strand clustered seeds -> chained, monotone anchor sets."""
+    if eff_break is None:
+        eff_break = cfg.break_len
+    out: list[RawChain] = []
+    for reverse, cl in zip((False, True), strands):
+        cmask = cl.c_mask.copy()
+        cmask[cl.n_clusters :] = False
+        idx = np.flatnonzero(cmask)
+        chains_ids = chain_clusters(
+            cl.c_rstart[idx],
+            cl.c_rend[idx],
+            cl.c_qstart[idx],
+            cl.c_qend[idx],
+            cl.c_weight[idx],
+            max_join_gap=eff_break,
+            min_chain_weight=cfg.min_cluster,
+        )
+        s_rpos, s_qpos, s_len = cl.seed_rpos, cl.seed_qpos, cl.seed_len
+        # Members of cluster c are seeds [c_first[c], c_first[c] + c_nseeds[c]).
+        first, nseeds = cl.c_first, cl.c_nseeds
+        for chain in chains_ids:
+            sel = (
+                np.concatenate(
+                    [
+                        np.arange(
+                            int(first[idx[c]]),
+                            int(first[idx[c]]) + int(nseeds[idx[c]]),
+                        )
+                        for c in chain
+                    ]
+                )
+                if chain
+                else np.empty(0, np.int64)
+            )
+            rp, qp, ln = s_rpos[sel], s_qpos[sel], s_len[sel]
+            order = np.lexsort((rp, qp))
+            rows = _trim_monotone(rp[order], qp[order], ln[order])
+            if len(rows):
+                out.append(
+                    RawChain(seeds=rows, reverse=reverse, break_len=eff_break)
+                )
+    return out
+
+
+def _trim_monotone(rp: np.ndarray, qp: np.ndarray, ln: np.ndarray) -> np.ndarray:
+    """Make seeds strictly monotone + non-overlapping on both axes."""
+    rp = rp.astype(np.int64)
+    qp = qp.astype(np.int64)
+    ln = ln.astype(np.int64)
+    n = len(rp)
+    if n == 0:
+        return np.empty((0, 3), dtype=np.int64)
+    prev_rend = np.concatenate(([-1], rp[:-1] + ln[:-1] - 1))
+    prev_qend = np.concatenate(([-1], qp[:-1] + ln[:-1] - 1))
+    trim = np.maximum.reduce([prev_rend - rp + 1, prev_qend - qp + 1, np.zeros(n, np.int64)])
+    r2, q2, l2 = rp + trim, qp + trim, ln - trim
+    if (l2 > 0).all():
+        return np.stack([r2, q2, l2], axis=1)
+    # Exact sequential walk (rare: contained seeds present).
+    rows = []
+    prev_r = prev_q = -1
+    for r, q, l in zip(rp, qp, ln):
+        t = max(prev_r - r + 1, prev_q - q + 1, 0)
+        r, q, l = r + t, q + t, l - t
+        if l <= 0:
+            continue
+        rows.append((int(r), int(q), int(l)))
+        prev_r, prev_q = r + l - 1, q + l - 1
+    return np.array(rows, dtype=np.int64) if rows else np.empty((0, 3), dtype=np.int64)
+
+
+def _extend_left(
+    ref_np: np.ndarray, query_np: np.ndarray, r0: int, q0: int, cap: int = 4096
+) -> int:
+    """Bases to extend a match leftward from (r0, q0) exclusive."""
+    m = min(r0, q0, cap)
+    if m <= 0:
+        return 0
+    a = ref_np[r0 - m : r0]
+    b = query_np[q0 - m : q0]
+    rev = ((a == b) & (a < 4))[::-1]
+    return int(np.argmin(rev)) if not rev.all() else m
+
+
+def _extend_right(
+    ref_np: np.ndarray, query_np: np.ndarray, r1: int, q1: int, cap: int = 4096
+) -> int:
+    """Bases to extend a match rightward from (r1, q1) inclusive ends."""
+    m = min(len(ref_np) - r1 - 1, len(query_np) - q1 - 1, cap)
+    if m <= 0:
+        return 0
+    a = ref_np[r1 + 1 : r1 + 1 + m]
+    b = query_np[q1 + 1 : q1 + 1 + m]
+    eq = (a == b) & (a < 4)
+    return int(np.argmin(eq)) if not eq.all() else m
+
+
+def _entries_of_chain(
+    chain: RawChain,
+    ref_np: np.ndarray,
+    query_np: np.ndarray,  # strand-local codes (revcomp'd when reverse)
+    ref_name: str,
+    query_name: str,
+    n_q: int,
+    cfg: AlignConfig,
+    device: torch.device,
+) -> list[DeltaEntry]:
+    """Assemble delta entries from a chain, aligning inter-anchor gaps."""
+    seeds = chain.seeds.copy()
+    n = len(seeds)
+    rp, qp, ln = seeds[:, 0], seeds[:, 1], seeds[:, 2]
+    rend, qend = rp + ln - 1, qp + ln - 1
+    # brk[i] = True: a new part starts at seed i+1.
+    if n > 1:
+        gap_r = rp[1:] - rend[:-1] - 1
+        gap_q = qp[1:] - qend[:-1] - 1
+        brk = np.maximum(gap_r, gap_q) > chain.break_len
+    else:
+        brk = np.zeros(0, dtype=bool)
+    starts = np.concatenate(([0], np.flatnonzero(brk) + 1))
+    ends = np.concatenate((starts[1:], [n]))
+
+    # Maximal end extension of each part, clamped at the neighbouring
+    # part's nearest seed.
+    for f, l in zip(starts.tolist(), (ends - 1).tolist()):
+        cap = 4096
+        if f > 0:
+            cap = min(cap, int(rp[f] - rend[f - 1] - 1), int(qp[f] - qend[f - 1] - 1))
+        t = _extend_left(ref_np, query_np, int(rp[f]), int(qp[f]), max(cap, 0))
+        if t:
+            rp[f] -= t
+            qp[f] -= t
+            ln[f] += t
+        cap = 4096
+        if l + 1 < n:
+            cap = min(cap, int(rp[l + 1] - rend[l] - 1), int(qp[l + 1] - qend[l] - 1))
+        t = _extend_right(ref_np, query_np, int(rend[l]), int(qend[l]), max(cap, 0))
+        if t:
+            ln[l] += t
+            rend[l] += t
+            qend[l] += t
+
+    seg_idx = np.flatnonzero(~brk) + 1
+    ncols, gapped = align_segments_spans(
+        ref_np, query_np,
+        rend[seg_idx - 1] + 1, rp[seg_idx],
+        qend[seg_idx - 1] + 1, qp[seg_idx],
+        cfg.scoring,
+        device=device,
+    )
+    n_segs = len(seg_idx)
+
+    # Column offset before each segment within its part.
+    cln = np.concatenate(([0], np.cumsum(ln)))
+    cnc = np.concatenate(([0], np.cumsum(ncols)))
+    t0 = np.searchsorted(seg_idx, starts, side="left")
+    pid = np.searchsorted(starts, seg_idx, side="right") - 1
+    col_before = (cln[seg_idx] - cln[starts[pid]]) + (
+        cnc[np.arange(n_segs)] - cnc[t0[pid]]
+    )
+
+    n_parts = len(starts)
+    part_rgaps: list[list[Range]] = [[] for _ in range(n_parts)]
+    part_qgaps: list[list[Range]] = [[] for _ in range(n_parts)]
+    cb = col_before.tolist()
+    pids = pid.tolist()
+    for t in sorted(gapped):
+        rg, qg = gapped[t]
+        col = cb[t]
+        p = pids[t]
+        part_rgaps[p].extend(Range(g.start + col, g.end + col) for g in rg)
+        part_qgaps[p].extend(Range(g.start + col, g.end + col) for g in qg)
+
+    entries: list[DeltaEntry] = []
+    firsts, lasts = starts.tolist(), (ends - 1).tolist()
+    rp_l, qp_l = rp.tolist(), qp.tolist()
+    rend_l, qend_l = rend.tolist(), qend.tolist()
+    for p in range(n_parts):
+        f, l = firsts[p], lasts[p]
+        rs, re_ = rp_l[f], rend_l[l]
+        qs, qe = qp_l[f], qend_l[l]
+        if chain.reverse:
+            q_range = Range(n_q - qs, n_q - qe)
+        else:
+            q_range = Range(qs + 1, qe + 1)
+        entries.append(
+            DeltaEntry(
+                ref_name=ref_name,
+                query_name=query_name,
+                ref_len=len(ref_np),
+                query_len=n_q,
+                ref_range=Range(rs + 1, re_ + 1),
+                query_range=q_range,
+                ref_gaps=part_rgaps[p],
+                query_gaps=part_qgaps[p],
+            )
+        )
+    return entries
+
+
+def device_codes(
+    np_codes: np.ndarray,
+    device: torch.device,
+    cache: dict | None = None,
+    key: str | None = None,
+) -> torch.Tensor:
+    """Padded device copy of a code array, memoized per (key, length)."""
+    if cache is None or key is None:
+        return upload_codes(np_codes, device)
+    k = (key, len(np_codes))
+    hit = cache.get(k)
+    if hit is None:
+        hit = upload_codes(np_codes, device)
+        cache[k] = hit
+    return hit
+
+
+def _finish_pair(
+    chains: list[RawChain],
+    ref_np: np.ndarray,
+    query_np: np.ndarray,
+    ref_name: str,
+    query_name: str,
+    cfg: AlignConfig,
+    device: torch.device,
+) -> list[DeltaEntry]:
+    """Chains -> sorted, post-filtered delta entries (host tail)."""
+    n_q = len(query_np)
+    query_rc_np = revcomp_codes_np(query_np)
+    entries: list[DeltaEntry] = []
+    for chain in chains:
+        qn = query_rc_np if chain.reverse else query_np
+        entries.extend(
+            _entries_of_chain(
+                chain, ref_np, qn, ref_name, query_name, n_q, cfg, device
+            )
+        )
+    entries.sort(key=lambda e: (e.ref_range.abs().start, e.ref_range.abs().end))
+    if cfg.post_filter == "one_to_one":
+        entries = filter_one_to_one(entries)
+    elif cfg.post_filter == "colinear":
+        entries = filter_colinear(entries)
+    elif cfg.post_filter:
+        raise ValueError(f"unknown post_filter: {cfg.post_filter}")
+    return entries
+
+
+def align_pair(
+    ref_seq: str | np.ndarray,
+    query_seq: str | np.ndarray,
+    ref_name: str = "ref",
+    query_name: str = "query",
+    cfg: AlignConfig | None = None,
+    device_cache: dict | None = None,
+    device: str | torch.device | None = None,
+) -> list[DeltaEntry]:
+    """Full pairwise alignment: sequences -> delta entries (both strands),
+    computed on `device` (``cuda`` unless named)."""
+    device = resolve_device(device)
+    cfg = cfg or AlignConfig()
+    ref_np = ref_seq if isinstance(ref_seq, np.ndarray) else encode(ref_seq)
+    query_np = query_seq if isinstance(query_seq, np.ndarray) else encode(query_seq)
+    n_q = len(query_np)
+    if max(len(ref_np), n_q) > cfg.window:
+        raise NotImplementedError(
+            f"sequences longer than cfg.window={cfg.window} need the windowed "
+            "path, not ported yet (ROADMAP queue A, item 4)"
+        )
+    ref_d = device_codes(ref_np, device, device_cache, ref_name)
+    query_d = device_codes(query_np, device, device_cache, query_name)
+    chains = _chain_seeds_all(ref_d, query_d, n_q, cfg)
+    return _finish_pair(chains, ref_np, query_np, ref_name, query_name, cfg, device)
+
+
+def _wis_filter(es: list[DeltaEntry], key) -> list[DeltaEntry]:
+    """Optimal weighted interval scheduling on one axis, O(n log n)."""
+    if not es:
+        return es
+    order = sorted(range(len(es)), key=lambda i: key(es[i]).abs().end)
+    starts = [key(es[i]).abs().start for i in order]
+    ends = [key(es[i]).abs().end for i in order]
+    weights = [key(es[i]).length for i in order]
+    n = len(order)
+    dp = [0] * (n + 1)  # dp[t] = best weight among the first t intervals
+    pred = [0] * n
+    for t in range(n):
+        p = bisect_left(ends, starts[t])  # ends[0..p-1] < starts[t]
+        pred[t] = p
+        dp[t + 1] = max(dp[t], weights[t] + dp[p])
+    chosen: list[int] = []
+    t = n - 1
+    while t >= 0:
+        if dp[t + 1] == dp[t]:
+            t -= 1
+        else:
+            chosen.append(order[t])
+            t = pred[t] - 1
+    chosen.sort()
+    return [es[i] for i in chosen]
+
+
+def filter_one_to_one(entries: list[DeltaEntry]) -> list[DeltaEntry]:
+    """delta-filter -1 role: optimal interval scheduling on the ref axis,
+    then on the query axis."""
+    es = _wis_filter(entries, lambda e: e.ref_range)
+    es = _wis_filter(es, lambda e: e.query_range)
+    return sorted(es, key=lambda e: e.ref_range.abs().start)
+
+
+def filter_colinear(entries: list[DeltaEntry]) -> list[DeltaEntry]:
+    """delta-filter -m role: one globally colinear chain (monotone on both
+    axes, one orientation) of maximal ref length, by weighted LIS over a
+    Fenwick max-tree."""
+    if not entries:
+        return entries
+
+    def solve(cand, qkey):
+        n = len(cand)
+        order = sorted(range(n), key=lambda i: cand[i].ref_range.abs().start)
+        qs = [qkey(cand[i])[0] for i in range(n)]
+        qe = [qkey(cand[i])[1] for i in range(n)]
+        coords = sorted(set(qe))
+        pos = {v: t + 1 for t, v in enumerate(coords)}
+        size = len(coords) + 1
+        tree_score = [0] * (size + 1)
+        tree_idx = [-1] * (size + 1)
+
+        def update(t, sc, idx):
+            while t <= size:
+                if sc > tree_score[t]:
+                    tree_score[t] = sc
+                    tree_idx[t] = idx
+                t += t & -t
+
+        def query(t):
+            sc, idx = 0, -1
+            while t > 0:
+                if tree_score[t] > sc:
+                    sc, idx = tree_score[t], tree_idx[t]
+                t -= t & -t
+            return sc, idx
+
+        import heapq
+
+        score = [0] * n
+        parent = [-1] * n
+        pending: list[tuple[int, int]] = []  # (ref_end, entry) min-heap
+        for i in order:
+            rs = cand[i].ref_range.abs().start
+            while pending and pending[0][0] < rs:
+                _, j = heapq.heappop(pending)
+                update(pos[qe[j]], score[j], j)
+            t = bisect_left(coords, qs[i])  # coords[:t] < qs[i]
+            best_sc, best_j = query(t)
+            score[i] = cand[i].ref_range.length + best_sc
+            parent[i] = best_j
+            heapq.heappush(pending, (cand[i].ref_range.abs().end, i))
+        if not n:
+            return []
+        i = max(range(n), key=lambda x: score[x])
+        chain = []
+        while i != -1:
+            chain.append(cand[i])
+            i = parent[i]
+        chain.reverse()
+        return chain
+
+    best: list[DeltaEntry] = []
+    for want_forward in (True, False):
+        cand = [e for e in entries if e.query_range.is_forward == want_forward]
+        if not cand:
+            continue
+        if want_forward:
+            qkey = lambda e: (e.query_range.abs().start, e.query_range.abs().end)  # noqa: E731
+        else:
+            # Reverse chains run down the query axis: mirror the coordinates.
+            qkey = lambda e: (-e.query_range.abs().end, -e.query_range.abs().start)  # noqa: E731
+        chain = solve(cand, qkey)
+        if sum(e.ref_range.length for e in chain) > sum(
+            e.ref_range.length for e in best
+        ):
+            best = chain
+    return best

@@ -1,0 +1,373 @@
+"""Both-strand exact-match seeding + clustering (counterpart of
+paramugsy_tpu.ops.seeding).
+
+`find_seeds_both` is the canonical-k-mer sort-join of the reference, as
+plain torch ops on the codes' device: stable sorts on packed int64 keys,
+cumsums, cummax and gathers.  Every size that changes output is computed
+as the reference computes it, from padded lengths: the sample buffer B,
+the match slice B2 and the output slices.  Of the reference's two
+sampling-compaction forms (proven equal by its tests) this port keeps
+scatter-then-sort, which sorts a 2^shift-times smaller buffer.
+
+The values left in masked output slots are garbage that still reaches the
+packed vector, so those are reproduced too (see `_carry_last_marked`).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from paramugsy_tpu_torch.ops.encode import M32, kmer_canonical
+
+BIG = 2**31 - 1
+M23 = (1 << 23) - 1
+OFF = 1 << 23
+
+
+class SeedMatches2(NamedTuple):
+    """Both-strand maximal matches (device tensors, fixed size, masked)."""
+
+    rpos: torch.Tensor
+    qpos: torch.Tensor  # strand-local (revcomp coordinates for reverse runs)
+    length: torch.Tensor
+    reverse: torch.Tensor
+    mask: torch.Tensor
+    n_raw: torch.Tensor
+    n_runs: torch.Tensor
+    samp_over: torch.Tensor  # 1 = sample buffer overflowed, 2 = match slice
+
+
+def _suffix_min(x):
+    return torch.flip(torch.cummin(torch.flip(x, (0,)), 0).values, (0,))
+
+
+def _carry_last_marked(mark: torch.Tensor, payload: torch.Tensor):
+    """Per element: the payload at the most recent marked position
+    (inclusive), and whether any marked position has been seen.
+
+    The reference computes this with a log2(n) doubling scan whose zero
+    padding leaves 0 before the first mark, except in one case: with no
+    mark at all and n a power of two, its last element receives
+    payload[0].  Unseen slots feed masked (but output-visible) values, so
+    that case is reproduced.
+    """
+    n = mark.shape[0]
+    idx = torch.arange(n, device=mark.device)
+    last = torch.cummax(torch.where(mark, idx, -1), 0).values
+    seen = last >= 0
+    out = torch.where(seen, payload[torch.clamp(last, min=0)], 0)
+    if n and n & (n - 1) == 0:
+        out[-1] = torch.where(seen[-1], out[-1], payload[0])
+    return seen, out
+
+
+def auto_sample_shift(n_total: int) -> int:
+    """Content-hash sampling policy: 1/4 density for joins >= 1M k-mers."""
+    return 2 if n_total >= (1 << 20) else 0
+
+
+def find_seeds_both(
+    ref_codes: torch.Tensor,
+    query_codes: torch.Tensor,
+    q_len: int,
+    *,
+    k: int = 15,
+    max_seeds: int = 1 << 16,
+    unique_in_query: bool = False,
+    sample_shift: int = 0,
+    merge_gap: int | None = None,
+) -> SeedMatches2:
+    """Maximal unique matches of both strands via one canonical-k-mer join
+    (see paramugsy_tpu.ops.seeding.find_seeds_both for the design)."""
+    dev = ref_codes.device
+    rk, rstrand, rvalid = kmer_canonical(ref_codes, k)
+    qk, qstrand, qvalid = kmer_canonical(query_codes, k)
+    n_r, n_q = rk.shape[0], qk.shape[0]
+    n = n_r + n_q
+    if max(n_r, n_q) >= 1 << 23:
+        raise ValueError("sequence bucket exceeds 2^23; window the input")
+    if k > 15:
+        sample_shift = 0
+    if merge_gap is None:
+        merge_gap = 16 << sample_shift if sample_shift else 0
+
+    def arange(m):
+        return torch.arange(m, device=dev, dtype=torch.int64)
+
+    # owner|strand|pos packed into 25 bits.
+    packed = torch.cat(
+        [
+            (rstrand.to(torch.int64) << 23) | arange(n_r),
+            (1 << 24) | (qstrand.to(torch.int64) << 23) | arange(n_q),
+        ]
+    )
+    invalid_b = torch.cat([~rvalid, ~qvalid])
+    samp_over = torch.zeros((), dtype=torch.int64, device=dev)
+
+    if k <= 15:
+        # Sort #1 key: [invalid(1)][canon(30)][owner(1)], refs first per code.
+        canon_all = torch.cat([rk, qk])
+        owner_key = torch.cat(
+            [
+                torch.zeros(n_r, dtype=torch.int64, device=dev),
+                torch.ones(n_q, dtype=torch.int64, device=dev),
+            ]
+        )
+        codes_all = (canon_all << 1) | owner_key
+        key1 = codes_all | (invalid_b.to(torch.int64) << 31)
+        if sample_shift:
+            h = (canon_all * 2654435761) & M32
+            keep = ((h >> (32 - sample_shift)) == 0) & ~invalid_b
+            B = ((n >> sample_shift) + (n >> (sample_shift + 3)) + 1023) & ~1023
+            B = min(B, n)
+            samp_over = (keep.sum() > B).to(torch.int64)
+            # Compact kept k-mers to the front of a B-sized buffer (slot B
+            # collects the dropped and overflowing ones), then sort.
+            dst = torch.where(keep, torch.cumsum(keep, 0) - 1, B).clamp(max=B)
+            key1_c = torch.full((B + 1,), 1 << 31, dtype=torch.int64, device=dev)
+            packed_c = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+            key1_c[dst] = key1
+            packed_c[dst] = packed
+            key1, packed = key1_c[:B], packed_c[:B]
+            n = B
+        key1, order = torch.sort(key1, stable=True)
+        packed = packed[order]
+        valid = key1 < (1 << 31)
+        seg_key = key1 >> 1  # owner stripped: the segment id
+        same_code = seg_key == torch.roll(seg_key, 1)
+    else:
+        # Keys (invalid, code, packed) in one int64: 1 + 32 + 25 bits.
+        codes = torch.cat([rk, qk])
+        key = (invalid_b.to(torch.int64) << 57) | (codes << 25) | packed
+        key, _ = torch.sort(key)
+        packed = key & ((1 << 25) - 1)
+        codes = (key >> 25) & M32
+        valid = (key >> 57) == 0
+        same_code = codes == torch.roll(codes, 1)
+
+    owner = packed >> 24
+    strand = (packed >> 23) & 1
+    pos = packed & M23
+
+    idx = arange(n)
+    is_start = valid & (~same_code | (idx == 0))
+    ref_in = (owner == 0) & valid
+    query_in = (owner > 0) & valid
+
+    # Refs sort first within a segment: the segment has a unique ref iff
+    # its first element is a ref and its second is not.
+    false1 = torch.zeros(1, dtype=torch.bool, device=dev)
+    nxt_ref = torch.cat([ref_in[1:], false1])
+    nxt_same = torch.cat([same_code[1:], false1])
+    two_refs = is_start & ref_in & nxt_same & nxt_ref
+    seen, first_info = _carry_last_marked(
+        is_start, packed | (two_refs.to(torch.int64) << 25)
+    )
+    first_packed = first_info & ((1 << 25) - 1)
+    one_ref = ((first_packed >> 24) == 0) & (((first_info >> 25) & 1) == 0)
+    rpos = first_packed & M23
+    r_strand = (first_packed >> 23) & 1
+
+    is_match = valid & query_in & seen & one_ref
+    if unique_in_query:
+        true1 = torch.ones(1, dtype=torch.bool, device=dev)
+        nxt_invalid = torch.cat([~valid[1:], true1])
+        nxt_start = torch.cat([is_start[1:], true1])
+        is_end = valid & (nxt_start | nxt_invalid)
+        q_in = query_in.to(torch.int64)
+        cum_query = torch.cumsum(q_in, 0)
+        before = torch.cummax(
+            torch.where(is_start, cum_query - q_in, -1), 0
+        ).values
+        at_end = _suffix_min(torch.where(is_end, cum_query, BIG))
+        is_match = is_match & ((at_end - before) == 1)
+
+    n_raw = is_match.sum()
+
+    # Strand-local query position: reverse matches anchor in revcomp
+    # coordinates.
+    rev = strand != r_strand
+    qpos_local = torch.where(rev, q_len - pos - k, pos)
+    owner2 = 1 + rev.to(torch.int64)  # 1 = forward, 2 = reverse
+
+    # Sort #2 by (match flag | owner | diag+offset, rpos): key2 < 2^31 and
+    # rpos is 23-bit, so both pack into one int64.
+    diag = rpos - qpos_local + OFF
+    key2 = torch.where(is_match, (owner2 << 24) | diag, 1 << 30)
+    k2, _ = torch.sort((key2 << 23) | rpos)
+    key2, rpos_c = k2 >> 23, k2 & M23
+    if sample_shift and k <= 15:
+        B2 = min(n, ((n * 5 // 8) + 1023) & ~1023)
+        samp_over = samp_over | (2 * (n_raw > B2).to(torch.int64))
+        key2, rpos_c = key2[:B2], rpos_c[:B2]
+        n = B2
+    mask_c = key2 < (1 << 30)
+    owner_c = (key2 >> 24) & 3
+    qpos_c = rpos_c - (key2 & (OFF * 2 - 1)) + OFF  # garbage when masked
+    cidx = arange(n)
+
+    prev_mask = torch.roll(mask_c, 1)
+    prev_mask[0] = False
+    # Same-diagonal runs merge across ref steps of 1..merge_gap+1.
+    dr_prev = rpos_c - torch.roll(rpos_c, 1)
+    run_start = mask_c & (
+        ~prev_mask
+        | (key2 != torch.roll(key2, 1))
+        | (dr_prev < 1)
+        | (dr_prev > merge_gap + 1)
+    )
+    dr_next = torch.roll(rpos_c, -1) - rpos_c
+    next_continues = (
+        torch.roll(mask_c, -1)
+        & (torch.roll(key2, -1) == key2)
+        & (dr_next >= 1)
+        & (dr_next <= merge_gap + 1)
+    )
+    is_run_end = mask_c & ((cidx == n - 1) | ~next_continues)
+    _, rpos0 = _carry_last_marked(run_start, rpos_c)
+    run_qpos = qpos_c - (rpos_c - rpos0)
+    run_span = rpos_c - rpos0 + k
+
+    n_runs = is_run_end.sum()
+
+    # Sort #3 (compaction): run ends first, in (owner, run_rpos) order.
+    key3 = torch.where(is_run_end, (owner_c << 24) | rpos0, 1 << 30)
+    key3, order = torch.sort(key3, stable=True)
+    take = min(max_seeds, n)
+    key3_c = key3[:take]
+    order = order[:take]
+    return SeedMatches2(
+        rpos=key3_c & (OFF * 2 - 1),
+        qpos=run_qpos[order],
+        length=run_span[order],
+        reverse=((key3_c >> 24) & 3) == 2,
+        mask=key3_c < (1 << 30),
+        n_raw=n_raw,
+        n_runs=n_runs,
+        samp_over=samp_over,
+    )
+
+
+def revcomp_on_device(codes: torch.Tensor, n: int) -> torch.Tensor:
+    """Reverse complement of the first ``n`` codes of a padded tensor,
+    trailing padding rolled back to the end."""
+    rc = torch.flip(torch.where(codes >= 4, codes, 3 - codes), (0,))
+    return torch.roll(rc, n - codes.shape[0])
+
+
+def seed_cluster_both_packed(
+    ref_codes: torch.Tensor,
+    query_codes: torch.Tensor,
+    q_len: int,
+    *,
+    k: int = 15,
+    max_seeds: int = 1 << 16,
+    unique_in_query: bool = False,
+    min_match: int = 20,
+    band: int = 16,
+    max_gap: int = 90,
+    max_clusters: int = 4096,
+    sample_shift: int = 0,
+    merge_gap: int | None = None,
+    m_out: int | None = None,
+    c_out: int | None = None,
+) -> torch.Tensor:
+    """Seeding + both-strand clustering, every output packed into one
+    int32 vector in the reference's layout (unpack with
+    `unpack_seed_clusters`):
+
+        [M, C, m_compute, n_raw, n_runs, samp_over]
+        then per strand (forward, reverse):
+          seed_rpos[M], seed_qpos[M], seed_len[M],
+          c_first[C], c_rstart[C], c_rend[C], c_qstart[C], c_qend[C],
+          c_weight[C], c_nseeds[C], c_mask[C], n_clusters[1], n_valid[1]
+    """
+    from paramugsy_tpu_torch.ops.chaining import cluster_seeds
+
+    seeds = find_seeds_both(
+        ref_codes, query_codes, q_len,
+        k=k, max_seeds=max_seeds, unique_in_query=unique_in_query,
+        sample_shift=sample_shift, merge_gap=merge_gap,
+    )
+    base_keep = seeds.mask & (seeds.length >= min_match)
+    m_eff = seeds.rpos.shape[0]
+    c_eff = min(max_clusters, m_eff)
+    m_o = m_eff if m_out is None else min(m_out, m_eff)
+    c_o = c_eff if c_out is None else min(c_out, c_eff)
+    dev = ref_codes.device
+    parts = [
+        torch.tensor([m_o, c_o, m_eff], dtype=torch.int64, device=dev),
+        seeds.n_raw[None],
+        seeds.n_runs[None],
+        seeds.samp_over[None],
+    ]
+    for reverse in (False, True):
+        keep = base_keep & (seeds.reverse == reverse)
+        cl = cluster_seeds(
+            seeds.rpos, seeds.qpos, seeds.length, keep,
+            band=band, max_gap=max_gap, max_clusters=max_clusters,
+        )
+        parts.extend(
+            [x[:m_o] for x in (cl.seed_rpos, cl.seed_qpos, cl.seed_len)]
+            + [
+                x[:c_o]
+                for x in (
+                    cl.c_first, cl.c_rstart, cl.c_rend, cl.c_qstart,
+                    cl.c_qend, cl.c_weight, cl.c_nseeds, cl.c_mask,
+                )
+            ]
+            + [cl.n_clusters[None], keep.sum()[None]]
+        )
+    return torch.cat([p.to(torch.int64) for p in parts]).to(torch.int32)
+
+
+class HostClusters(NamedTuple):
+    """Host-side unpacked per-strand clustering results (NumPy arrays;
+    copied from paramugsy_tpu.ops.seeding)."""
+
+    seed_rpos: "object"
+    seed_qpos: "object"
+    seed_len: "object"
+    c_first: "object"
+    c_rstart: "object"
+    c_rend: "object"
+    c_qstart: "object"
+    c_qend: "object"
+    c_weight: "object"
+    c_nseeds: "object"
+    c_mask: "object"
+    n_clusters: int
+    n_valid: int  # valid (min_match-filtered) seeds of this strand
+
+    @property
+    def truncated(self) -> bool:
+        """Did the m_out/c_out output slice cut off valid data?"""
+        return (
+            self.n_valid > len(self.seed_rpos)
+            or self.n_clusters > len(self.c_first)
+        )
+
+
+def unpack_seed_clusters(packed, max_seeds: int, max_clusters: int):
+    """Split `seed_cluster_both_packed` output:
+    (n_raw, n_runs, samp_over, m_compute, [fwd, rev]) (copied from
+    paramugsy_tpu.ops.seeding)."""
+    buf = np.asarray(packed)
+    M, C, m_compute = int(buf[0]), int(buf[1]), int(buf[2])
+    assert M <= max_seeds and C <= max_clusters
+    n_raw, n_runs, samp_over = int(buf[3]), int(buf[4]), int(buf[5])
+    off = 6
+    strands = []
+    for _ in range(2):
+        fields = []
+        for size in (M, M, M, C, C, C, C, C, C, C, C):
+            fields.append(buf[off : off + size])
+            off += size
+        n_clusters = int(buf[off])
+        n_valid = int(buf[off + 1])
+        off += 2
+        fields[10] = fields[10] != 0  # c_mask back to bool
+        strands.append(HostClusters(*fields, n_clusters, n_valid))
+    return n_raw, n_runs, samp_over, m_compute, strands

@@ -1,0 +1,138 @@
+"""The port's nucmer CLI against the reference's, and the port's import
+boundary: no module of paramugsy_tpu_torch brings in JAX."""
+import io
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from bench import build_pair
+from paramugsy_tpu import cli as ref_cli
+from paramugsy_tpu_torch import cli as port_cli
+
+torch.set_num_threads(1)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _write_fastas(tmp_path):
+    ref, q = build_pair(np.random.default_rng(4), 60_000)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    paths = []
+    for name, records in (
+        ("genome_a", [ref[:30_000], ref[30_000:]]),
+        ("genome_b", [q]),
+    ):
+        path = tmp_path / f"{name}.fasta"
+        with open(path, "w") as f:
+            for i, codes in enumerate(records):
+                f.write(f">{name}_contig{i}\n{acgt[codes].tobytes().decode()}\n")
+        paths.append(str(path))
+    return paths
+
+
+def test_nucmer_cli_equals_reference(tmp_path):
+    ref_fa, qry_fa = _write_fastas(tmp_path)
+    for flags in ([], ["-one_to_one"], ["-colinear", "-minlength", "25"]):
+        outs = {}
+        for name, run in (
+            ("ref", ref_cli._nucmer_main),
+            ("port", lambda argv: port_cli.main(["nucmer", *argv, "-device", "cpu"])),
+        ):
+            delta = tmp_path / f"{name}.delta"
+            maf = tmp_path / f"{name}.maf"
+            argv = ["-ref_seq", ref_fa, "-query_seq", qry_fa,
+                    "-out_delta", str(delta), "-out_maf", str(maf), *flags]
+            assert run(argv) == 0
+            outs[name] = (delta.read_text(), maf.read_text())
+        assert outs["port"] == outs["ref"], flags
+        assert outs["port"][0].count("\n") > 3
+
+
+def test_smoke_inputs_and_delta_helpers_match_reference():
+    """chip_smoke.py imports only the port: its copy of bench.build_pair
+    and its delta parsing must agree with the reference's."""
+    import chip_smoke
+    from paramugsy_tpu.formats.delta import DeltaWriter
+    from paramugsy_tpu.ops.align_pair import AlignConfig, align_pair
+
+    want = build_pair(np.random.default_rng(12345), 60_000)
+    got = chip_smoke.build_pair(np.random.default_rng(12345), 60_000)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    ref, q = want
+    q = np.concatenate([q[:20_000], q[20_030:40_000], ref[39_000:39_025], q[40_000:]])
+    entries = align_pair(ref, q, "r.c", "q.c", AlignConfig())
+    assert any(e.ref_gaps for e in entries) and any(e.query_gaps for e in entries)
+    text = port_cli.delta_text(entries, "a.fa", "b.fa")
+    buf = io.StringIO()
+    w = DeltaWriter(buf, "a.fa", "b.fa")
+    for e in entries:
+        w.write(e)
+    assert text == buf.getvalue()
+    assert chip_smoke.aligned_bp(text) == sum(e.alignment_length() for e in entries)
+
+
+def test_smoke_imports_only_the_port():
+    """chip_smoke.py imports nothing of JAX, of the JAX package or of its
+    bench script, directly: only the port and the standard library."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    tops = {n.split(".")[0] for n in names}
+    assert "paramugsy_tpu_torch" in tops
+    assert not tops & {"jax", "jaxlib", "paramugsy_tpu", "bench"}, tops
+
+
+def test_cli_unknown_subcommand_returns_2():
+    assert port_cli.main(["align"]) == 2
+    assert port_cli.main([]) == 2
+
+
+_NO_JAX = r"""
+import importlib, pkgutil, runpy, sys
+import paramugsy_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    paramugsy_tpu_torch.__path__, "paramugsy_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "jax" not in sys.modules, "importing the port pulled in jax"
+import torch
+from paramugsy_tpu_torch.utils.platform import resolve_device
+assert resolve_device("cpu").type == "cpu"
+if not torch.cuda.is_available():
+    try:
+        resolve_device()
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("cuda without a card must raise")
+sys.argv = ["cli", "nucmer", "-ref_seq", sys.argv[1], "-query_seq", sys.argv[2],
+            "-out_delta", sys.argv[3], "-device", "cpu"]
+try:
+    runpy.run_module("paramugsy_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert "jax" not in sys.modules, "the nucmer CLI pulled in jax"
+print(len(names), "modules")
+"""
+
+
+def test_port_never_imports_jax(tmp_path):
+    ref_fa, qry_fa = _write_fastas(tmp_path)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX, ref_fa, qry_fa, str(tmp_path / "o.delta")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[0]) >= 13
+    assert (tmp_path / "o.delta").read_text().startswith(ref_fa)
