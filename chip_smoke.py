@@ -17,6 +17,14 @@ result line:
    doubling reaches, W = 1024 ... 32768 (past 16384 the rows leave
    shared memory).  Buffers must be bit-identical; every pair must equal
    the native banded engine.
+2b. K3 (``banded_dp``, one pair) and K4 (``banded_dp_batch``) against
+   ``banded_dp_plain``: one ~8 kb pair at W = 512 and eight pairs of
+   2-8 kb at W = 64, 256, 512, 1024, 4096 and 32768 (the widest band
+   whose row fits shared memory), one pair one base inside the band
+   edge; dirs buffers must be equal.  Then their path, the
+   entry points ``banded_align`` and ``banded_align_batch`` on the same
+   pairs, with the counts zeroed before and read after; every triple must
+   equal the native banded engine at the same width.
 3. Headline pair through the port's ``nucmer`` CLI: the 2 Mbp pair of
    ``build_pair`` (bench.py's recipe); the delta body must equal the JAX
    reference's, and the segments must have run on the native NW engine.
@@ -24,9 +32,20 @@ result line:
    with ``break_len=2048`` so that long segments reach K1 and K2; the
    entries must equal the JAX reference's.
 
-Launch counters are zeroed before phase 3 and read after phase 4.  The
-script imports only the port (``paramugsy_tpu_torch``), never JAX or the
-JAX package directly.  Without a CUDA device it exits 2.
+5. The 8-genome family (``build_family``, seed 7, 8 x 2 Mbp, bench.py's
+   recipe) through ``align -sequential`` twice (first, warm): the MAF must
+   equal the JAX reference's sha256, and the seeding must have been
+   dispatched on the card as often as the reference dispatched it.
+6. The realistic fixture (``tests/data/realistic``, 5 genomes) through
+   ``align -sequential -refine`` twice: the MAF must equal the reference's
+   sha256, every long refine segment must have run on K1/K2 (as many as
+   the reference sent to its host banded engine), and both kernels must
+   have launched.
+
+Launch counters are zeroed before each path (phases 3-4 together, 2b's
+entry points, 5, 6) and read after it.  The script imports only the port
+(``paramugsy_tpu_torch``), never JAX or the JAX package directly.  Without
+a CUDA device it exits 2.
 """
 from __future__ import annotations
 
@@ -61,6 +80,22 @@ ISLAND_LONG_SEGMENTS = 4
 HEADLINE_BP = 2_000_000
 ISLAND_BREAK_LEN = 2048
 
+# sha256 of the MAF files that the JAX reference's ``align -sequential``
+# (JAX_PLATFORMS=cpu) writes from the same inputs, with its engine counts:
+# the 8 x 2 Mbp family (``family_fastas``) and the realistic fixture with
+# -refine.  Computed at commit 197a49f; paramugsy_tpu is unchanged since.
+FAMILY_MAF_SHA256 = (
+    "9aa5c55b2add9cc03d3d17e41c1498fc729cdfa41116e9d8f7ea572c8f416e77"
+)
+FAMILY_BP = 2_000_000
+FAMILY_COUNT = 8
+FAMILY_SEEDCLUSTER = 28  # the reference's seed-cluster dispatches per run
+REALISTIC_MAF_SHA256 = (
+    "59470c2c6569bb99db6ef25e4b8509929f7be4d20db6a75cd50034cb38f4bf05"
+)
+REALISTIC_LONG_SEGMENTS = 151  # the reference's native-banded segments per run
+BANDED_WIDTHS = (64, 256, 512, 1024, 4096, 32768)
+
 
 def build_pair(rng, n):
     """bench.py's pair: `n` random bases, 1% substitutions, a 12 bp
@@ -76,6 +111,38 @@ def build_pair(rng, n):
     inv = (3 - q[a:b])[::-1].copy()
     q = np.concatenate([q[:a], inv, q[b:]])
     return ref, q
+
+
+def build_family(rng, n, count=4, div=0.005):
+    """bench.py's family: `count` genomes independently diverged from one
+    ancestor (`div` substitutions, five 1 bp deletions each)."""
+    from paramugsy_tpu_torch.pipeline import Genome
+
+    bases = np.array(list("ACGT"))
+    anc = rng.integers(0, 4, size=n).astype(np.int8)
+    genomes = []
+    for i in range(count):
+        g = anc.copy()
+        subs = rng.random(n) < div
+        g[subs] = ((g[subs] + rng.integers(1, 4, size=int(subs.sum()))) % 4).astype(np.int8)
+        g = np.delete(g, rng.integers(0, n, size=5))
+        genomes.append(
+            Genome(name=f"q{i}", seqs={f"q{i}.chr": "".join(bases[g])})
+        )
+    return genomes
+
+
+def family_fastas(directory: str, n: int, count: int, seed: int = 7) -> list[str]:
+    """Write `build_family` (np.random.default_rng(seed)) as one FASTA file
+    per genome, ``q<i>.fa``; returns the paths in genome order."""
+    paths = []
+    for g in build_family(np.random.default_rng(seed), n, count=count):
+        (name, seq), = g.seqs.items()
+        path = os.path.join(directory, f"{g.name}.fa")
+        with open(path, "w") as f:
+            f.write(f">{name}\n{seq}\n")
+        paths.append(path)
+    return paths
 
 
 def headline_fastas(directory: str) -> tuple[str, str]:
@@ -210,6 +277,88 @@ def check_kernels(pairs, device, reps: int) -> dict:
     return row
 
 
+def banded_batch(rng, width: int) -> list:
+    """Eight pairs of 2-8 kb for one K4 launch at `width`: the lengths
+    differ per pair, and the last pair's length difference is W/2 - 1, one
+    base inside the band edge (at most half its length: at W 32768 the
+    pairs are too short to reach the edge)."""
+    pairs = []
+    for p in range(8):
+        length = 2000 + 850 * p
+        n_del = width // 2 - 1 if p == 7 else int(rng.integers(0, width // 4))
+        pairs.extend(kernel_pairs(rng, 1, length, min(n_del, length // 2)))
+    return pairs
+
+
+def _dirs_err(got, want) -> int:
+    import torch
+
+    return int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+
+
+def check_banded(device, reps: int) -> dict:
+    """K3 and K4 against banded_dp_plain on the card (direct wrapper
+    calls), then their path: the entry points banded_align and
+    banded_align_batch on the same pairs, with the launch counts zeroed
+    before and read after.  Every triple must equal the native banded
+    engine at the same width."""
+    import torch
+
+    from paramugsy_tpu_torch.ops import banded as bd
+    from paramugsy_tpu_torch.ops.extend import align_long_segment
+
+    rng = np.random.default_rng(2024)
+    k3_pair = kernel_pairs(rng, 1, 8192, 100)[0]
+    batches = {w: banded_batch(rng, w) for w in BANDED_WIDTHS}
+
+    a, b = k3_pair
+    A, B, al, bl = bd.pack_pairs([k3_pair], device)
+    kw = dict(rows=bd.chunk_rows([len(a)], 128), width=512)
+    dirs = bd.banded_dp(A, B, al, bl, **kw)
+    plain, k3_plain_ms = _once_ms(lambda: bd.banded_dp_plain(A, B, al, bl, **kw))
+    if not torch.equal(dirs, plain[:, 0]):
+        raise AssertionError("K3 differs from its plain version at W=512")
+    row = {
+        "k3": {
+            "length": len(a), "width": 512, "max_abs_err": _dirs_err(dirs, plain[:, 0]),
+            "ms": _cuda_ms(lambda: bd.banded_dp(A, B, al, bl, **kw), reps),
+            "plain_ms": k3_plain_ms,
+        },
+        "k4": [],
+    }
+    for width, pairs in batches.items():
+        A, B, al, bl = bd.pack_pairs(pairs, device)
+        kw = dict(rows=bd.chunk_rows([len(x) for x, _ in pairs], 128), width=width)
+        dirs = bd.banded_dp_batch(A, B, al, bl, **kw)
+        plain, plain_ms = _once_ms(lambda: bd.banded_dp_plain(A, B, al, bl, **kw))
+        if not torch.equal(dirs, plain):
+            raise AssertionError(f"K4 differs from its plain version at W={width}")
+        row["k4"].append({
+            "pairs": len(pairs), "rows": kw["rows"], "width": width,
+            "max_abs_err": _dirs_err(dirs, plain),
+            "ms": _cuda_ms(lambda: bd.banded_dp_batch(A, B, al, bl, **kw), reps),
+            "plain_ms": plain_ms,
+        })
+
+    # The path: the two entry points, counted.
+    bd.banded_dp.launches = 0
+    bd.banded_dp_batch.launches = 0
+    got = {("k3", 512): [bd.banded_align(a, b, width=512, device=device)]}
+    for width, pairs in batches.items():
+        got["k4", width] = bd.banded_align_batch(pairs, width=width, device=device)
+    row["launches"] = {
+        "banded_dp": bd.banded_dp.launches,
+        "banded_dp_batch": bd.banded_dp_batch.launches,
+    }
+    for (kind, width), triples in got.items():
+        pairs = [k3_pair] if kind == "k3" else batches[width]
+        for p, ((x, y), t) in enumerate(zip(pairs, triples)):
+            if t != align_long_segment(x, y, width=width):
+                raise AssertionError(f"{kind} pair {p} differs from native at W={width}")
+    print("banded_check", json.dumps(row), flush=True)
+    return row
+
+
 def build_native() -> None:
     """Build native/ (chaining, NW and banded engines) when it is missing.
 
@@ -318,6 +467,98 @@ def island_phase(device) -> dict:
     return row
 
 
+def _launch_counts() -> dict:
+    from paramugsy_tpu_torch.ops import wavefront as wf
+
+    return {
+        "wavefront_dp": wf.wavefront_dp.launches,
+        "wavefront_traceback": wf.wavefront_traceback.launches,
+    }
+
+
+def _zero_launches() -> None:
+    from paramugsy_tpu_torch.ops import wavefront as wf
+
+    wf.wavefront_dp.launches = 0
+    wf.wavefront_traceback.launches = 0
+
+
+def _align_runs(name: str, argv: list, out: str, digest: str) -> list:
+    """`cli align` twice on the same inputs: per run the wall, the engine
+    counts, the phase times and the MAF digest check."""
+    import torch
+
+    from paramugsy_tpu_torch import cli
+    from paramugsy_tpu_torch.ops import engines
+    from paramugsy_tpu_torch.pipeline import METRICS
+
+    runs = []
+    for _ in range(2):
+        METRICS.phases.clear()
+        before = dict(engines.COUNTS)
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{name}: align CLI failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            if hashlib.sha256(f.read()).hexdigest() != digest:
+                raise AssertionError(f"{name}: MAF differs from the JAX reference")
+        runs.append({
+            "wall_s": wall,
+            "engines": _engine_delta(before),
+            "phases_s": {k: v.total_s for k, v in sorted(METRICS.phases.items())},
+        })
+        print(METRICS.report(), flush=True)
+    return runs
+
+
+def family_phase(device) -> dict:
+    """The 8 x 2 Mbp family through ``align -sequential`` (first, warm)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = family_fastas(tmp, FAMILY_BP, FAMILY_COUNT)
+        out = os.path.join(tmp, "family.maf")
+        argv = ["align", "-sequential", *paths, "-out_maf", out, "-device", device.type]
+        runs = _align_runs("family", argv, out, FAMILY_MAF_SHA256)
+    for r in runs:
+        if r["engines"].get(f"seedcluster-{device.type}") != FAMILY_SEEDCLUSTER:
+            raise AssertionError(
+                f"family: seeding dispatched {r['engines']} on {device.type}, "
+                f"expected {FAMILY_SEEDCLUSTER} (the reference's count)"
+            )
+        if not r["engines"].get("native-nw") or "numpy-nw" in r["engines"]:
+            raise AssertionError(f"family: segments did not run on native NW: {r}")
+    row = {"genomes": FAMILY_COUNT, "bp": FAMILY_BP, "first": runs[0], "warm": runs[1]}
+    print("family", json.dumps(row), flush=True)
+    return row
+
+
+def realistic_phase(device) -> dict:
+    """The realistic fixture through ``align -sequential -refine`` (first,
+    warm): every long refine segment on K1/K2."""
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "realistic", "*.fa")))
+    if len(paths) != 5:
+        raise AssertionError(f"realistic fixture: {len(paths)} FASTA files, expected 5")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "realistic.maf")
+        argv = [
+            "align", "-sequential", *paths, "-refine", "-out_maf", out,
+            "-device", device.type,
+        ]
+        runs = _align_runs("realistic", argv, out, REALISTIC_MAF_SHA256)
+    for r in runs:
+        if r["engines"].get("device-wavefront") != REALISTIC_LONG_SEGMENTS:
+            raise AssertionError(
+                f"realistic: {r['engines']}; expected {REALISTIC_LONG_SEGMENTS} "
+                "long segments on the wavefront kernels"
+            )
+    row = {"genomes": len(paths), "first": runs[0], "warm": runs[1]}
+    print("realistic", json.dumps(row), flush=True)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -363,23 +604,40 @@ def main() -> int:
     if widths != [512, 1024, 2048, 4096, 8192, 16384, 32768]:
         raise AssertionError(f"kernel checks reached widths {widths}")
 
-    from paramugsy_tpu_torch.ops import engines
-    from paramugsy_tpu_torch.ops import wavefront as wf
+    # Phase 2b: K3/K4 against their plain version, then their path.
+    banded = check_banded(device, reps=3)
+    if min(banded["launches"].values()) <= 0:
+        raise AssertionError(f"a banded kernel never launched: {banded['launches']}")
 
-    # The main path starts here: counters count only its launches.
+    from paramugsy_tpu_torch.ops import engines
+
+    # Each path from here on: counters zeroed just before, read just after.
     engines.reset_counts()
-    wf.wavefront_dp.launches = 0
-    wf.wavefront_traceback.launches = 0
+    _zero_launches()
     headline_phase(device)
     island_phase(device)
-    launches = {
-        "wavefront_dp": wf.wavefront_dp.launches,
-        "wavefront_traceback": wf.wavefront_traceback.launches,
-    }
-    print("main_path_launches", json.dumps(launches), flush=True)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    pair_launches = _launch_counts()
+    print("main_path_launches", json.dumps({"pairwise": pair_launches}), flush=True)
+    if min(pair_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: {pair_launches}")
 
+    _zero_launches()
+    family_phase(device)
+    family_launches = _launch_counts()
+    print("main_path_launches", json.dumps({"family": family_launches}), flush=True)
+
+    _zero_launches()
+    realistic_phase(device)
+    refine_launches = _launch_counts()
+    print("main_path_launches", json.dumps({"realistic": refine_launches}), flush=True)
+    if min(refine_launches.values()) <= 0:
+        raise AssertionError(f"K1/K2 never launched under -refine: {refine_launches}")
+
+    launches = {
+        k: pair_launches[k] + family_launches[k] + refine_launches[k]
+        for k in pair_launches
+    }
+    k4_main = next(r for r in banded["k4"] if r["width"] == 512)
     kernels = [
         {
             "name": "wavefront_dp",
@@ -400,6 +658,26 @@ def main() -> int:
             "max_abs_err": max(r["k2_max_abs_err"] for r in [bench_shape, *wide]),
             "ms": bench_shape["k2_ms"],
             "plain_ms": bench_shape["k2_plain_ms"],
+        },
+        {
+            "name": "banded_dp",
+            "route": "cuda",
+            "source": "paramugsy_tpu_torch/csrc/banded.cu",
+            "replaces": "paramugsy_tpu/ops/pallas_extend.py:58",
+            "launches": banded["launches"]["banded_dp"],
+            "max_abs_err": banded["k3"]["max_abs_err"],
+            "ms": banded["k3"]["ms"],
+            "plain_ms": banded["k3"]["plain_ms"],
+        },
+        {
+            "name": "banded_dp_batch",
+            "route": "cuda",
+            "source": "paramugsy_tpu_torch/csrc/banded.cu",
+            "replaces": "paramugsy_tpu/ops/pallas_extend.py:296",
+            "launches": banded["launches"]["banded_dp_batch"],
+            "max_abs_err": max(r["max_abs_err"] for r in banded["k4"]),
+            "ms": k4_main["ms"],
+            "plain_ms": k4_main["plain_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

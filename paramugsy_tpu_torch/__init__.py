@@ -1,10 +1,15 @@
 """paramugsy_tpu_torch: the PyTorch/CUDA port of paramugsy_tpu.
 
-The pairwise (nucmer-role) path runs here end to end on one NVIDIA GPU:
-codes upload to the device, one seeding + clustering pass of plain torch
-ops, host chaining, and inter-anchor gap alignment whose long segments go
-through two hand-written CUDA kernels (the anti-diagonal banded DP and its
-traceback, `csrc/`).
+Two paths run here end to end on one NVIDIA GPU.  The pairwise
+(nucmer-role) path: codes upload to the device, one seeding + clustering
+pass of plain torch ops, host chaining, and inter-anchor gap alignment
+whose long segments go through two hand-written CUDA kernels (the
+anti-diagonal banded DP and its traceback, `csrc/`).  The sequential
+multiple alignment (``align -sequential``, `pipeline.align_fastas`): a
+guide tree from k-mer sketches multiplied on the device, then profile
+merges fed by that pairwise path, with bridging and ``-refine`` gap
+alignments on the same engines.  The row-banded DP of the reference
+(`ops/banded.py`, one CUDA kernel for one pair or a batch) is ported too.
 
 Module names follow `paramugsy_tpu` so each counterpart is easy to find.
 `paramugsy_tpu` stays the reference: modules of it that import no JAX

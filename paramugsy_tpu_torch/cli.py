@@ -1,13 +1,18 @@
 """Command-line entry of the port (counterpart of paramugsy_tpu.cli).
 
-Only the pairwise subcommand is ported so far:
+Two subcommands are ported so far, the pairwise one and the sequential
+multiple alignment:
 
     python -m paramugsy_tpu_torch.cli nucmer -ref_seq a.fa -query_seq b.fa \\
         -out_delta o.delta [-out_maf o.maf] [-device cuda|cpu]
+    python -m paramugsy_tpu_torch.cli align -sequential g1.fa g2.fa ... \\
+        -out_maf out.maf [-refine] [-device cuda|cpu]
 
-Its flags and output are the reference's ``nucmer``; ``-device`` picks
-the torch device (``cuda`` by default; ``cpu`` runs the plain versions of
-the kernels).
+Their flags and output are the reference's; ``-device`` picks the torch
+device (``cuda`` by default, which raises without a card; ``cpu`` runs
+the plain versions of the kernels).  ``align`` without ``-sequential``,
+and its ``-tmp_dir``, ``-distributed`` and ``-duplications``, exit 2
+naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -78,12 +83,113 @@ def _nucmer_main(argv: list[str]) -> int:
     return 0
 
 
+def _align_main(argv: list[str]) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="paramugsy_tpu_torch align")
+    ap.add_argument("-seq_list", help="file listing genome FASTA paths")
+    ap.add_argument("fastas", nargs="*", help="genome FASTA paths")
+    ap.add_argument("-out_maf", required=True)
+    ap.add_argument("-seqs_per_mugsy", type=int, default=2)
+    ap.add_argument("-minlength", type=int, default=30)
+    ap.add_argument(
+        "-distance", type=int, default=200,
+        help="max distance between joined anchor clusters (mugsyWGA --distance role)",
+    )
+    ap.add_argument(
+        "-skipunique", action="store_true",
+        help="do not emit unaligned (unique) regions in the output MAF",
+    )
+    ap.add_argument(
+        "-refine", nargs="?", const="colinear", default=None,
+        help="per-block MSA refinement after each merge (mugsyWGA --refine "
+        "role); the optional value is accepted for compatibility",
+    )
+    ap.add_argument(
+        "-duplications", action="store_true",
+        help="genome-vs-self duplications (not ported yet)",
+    )
+    ap.add_argument(
+        "-dup_list", help="file listing precomputed duplication MAF paths to append"
+    )
+    ap.add_argument("-run_size", type=int, default=4, help="concurrent task slots")
+    ap.add_argument("-nucmer_chunk_size", type=int, default=16)
+    ap.add_argument("-sequential", action="store_true", help="single-process run")
+    ap.add_argument("-tmp_dir", help="artifact store (not ported yet)")
+    ap.add_argument("-distributed", action="store_true", help="not ported yet")
+    ap.add_argument(
+        "-tree", help="Newick guide-tree file (leaf names = genome names)"
+    )
+    ap.add_argument("-config", help="JSON config file (PipelineConfig fields)")
+    ap.add_argument(
+        "-stats", action="store_true", help="print phase timings and peak RSS at the end"
+    )
+    ap.add_argument("-trace", help="write a Chrome trace-event JSON of all phases")
+    ap.add_argument("-device", default="cuda", help="torch device: cuda or cpu")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+
+    unported = [
+        (not args.sequential, "runs without -sequential need the concurrent executor", 8),
+        (args.tmp_dir, "-tmp_dir needs the concurrent executor's artifact store", 8),
+        (args.distributed, "-distributed needs the multi-host runtime", 9),
+        (args.duplications, "-duplications needs align_self", 4),
+    ]
+    for hit, why, item in unported:
+        if hit:
+            print(f"not ported yet: {why} (ROADMAP queue A, item {item})", file=sys.stderr)
+            return 2
+
+    from paramugsy_tpu.utils.obs import METRICS, TRACE, MemoryMonitor
+    from paramugsy_tpu_torch.ops.align_pair import AlignConfig
+    from paramugsy_tpu_torch.pipeline import PipelineConfig, align_fastas, load_config
+    from paramugsy_tpu_torch.utils.platform import resolve_device
+
+    if args.trace:
+        TRACE.enable()
+    paths = list(args.fastas)
+    if args.seq_list:
+        with open(args.seq_list) as f:
+            paths.extend(line.strip() for line in f if line.strip())
+    if not paths:
+        ap.error("no input genomes (use -seq_list or positional FASTA paths)")
+    device = resolve_device(args.device)
+    if args.config:
+        cfg = load_config(args.config)
+    else:
+        cfg = PipelineConfig(
+            max_seqs=args.seqs_per_mugsy,
+            min_length=args.minlength,
+            emit_unique=not args.skipunique,
+            refine=args.refine is not None,
+            align=AlignConfig(break_len=args.distance),
+        )
+    if args.tree:
+        with open(args.tree) as f:
+            cfg.guide_tree_newick = f.read().strip()
+    if args.dup_list:
+        with open(args.dup_list) as f:
+            cfg.dup_list = [line.strip() for line in f if line.strip()]
+    cfg.progress = (lambda m: print(m, file=sys.stderr)) if args.verbose else None
+    blocks = align_fastas(paths, args.out_maf, cfg, device=device)
+    print(f"wrote {args.out_maf}: {len(blocks)} blocks", file=sys.stderr)
+    if args.trace:
+        TRACE.save(args.trace)
+        print(f"trace written to {args.trace}", file=sys.stderr)
+    if args.stats:
+        print(METRICS.report(), file=sys.stderr)
+        print(f"peak_rss_kb\t{MemoryMonitor._rss_kb()}", file=sys.stderr)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "nucmer":
         return _nucmer_main(argv[1:])
+    if argv and argv[0] == "align":
+        return _align_main(argv[1:])
     print(
-        "usage: python -m paramugsy_tpu_torch.cli nucmer ... (the other "
+        "usage: python -m paramugsy_tpu_torch.cli nucmer|align ... (the other "
         "subcommands are not ported yet; see ROADMAP.md queue A)",
         file=sys.stderr,
     )

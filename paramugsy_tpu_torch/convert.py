@@ -13,6 +13,7 @@ import torch
 
 from paramugsy_tpu.ops.extend import Scoring
 from paramugsy_tpu_torch.ops.align_pair import AlignConfig
+from paramugsy_tpu_torch.pipeline import PipelineConfig
 
 
 def align_config(ref_cfg) -> AlignConfig:
@@ -20,6 +21,15 @@ def align_config(ref_cfg) -> AlignConfig:
     fields = dataclasses.asdict(ref_cfg)
     fields["scoring"] = Scoring(**fields["scoring"])
     return AlignConfig(**fields)
+
+
+def pipeline_config(ref_cfg) -> PipelineConfig:
+    """Reference `PipelineConfig` -> port `PipelineConfig` (same field
+    values, its nested `AlignConfig` and `Scoring` included)."""
+    fields = {f.name: getattr(ref_cfg, f.name) for f in dataclasses.fields(ref_cfg)}
+    fields["align"] = align_config(ref_cfg.align)
+    fields["dup_list"] = list(ref_cfg.dup_list)
+    return PipelineConfig(**fields)
 
 
 def codes(arr, device: str | torch.device) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface, so ``nvcc`` compiles them in
-seconds into one shared library, loaded with ctypes.  The build runs on
-first CUDA use, from the sources in the checkout, into
-``paramugsy_tpu_torch/build/`` (listed in .gitignore), and again whenever
-a source is newer than the library.  Nothing here runs at import time.
+seconds (one compiler per source, in parallel) into one shared library,
+loaded with ctypes.  The build runs on first CUDA use, from the sources in
+the checkout, into ``paramugsy_tpu_torch/build/`` (listed in .gitignore),
+and again whenever a source is newer than the library.  Nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [
-    os.path.join(_PKG, "csrc", name) for name in ("wavefront.cu", "traceback.cu")
+    os.path.join(_PKG, "csrc", name) for name in ("wavefront.cu", "traceback.cu", "banded.cu")
 ]
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libpm_kernels.so")
@@ -46,29 +47,52 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in SOURCES)
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; append their output to LOG_PATH and
+    raise if any failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    failed = []
+    try:
+        with open(LOG_PATH, "a") as log:
+            for c, p in zip(cmds, procs):
+                out, _ = p.communicate(timeout=600)
+                log.write(" ".join(c) + "\n" + out)
+                if p.returncode != 0:
+                    failed.append(f"{' '.join(c)} ({p.returncode}):\n{out}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build() -> str:
-    """Compile the kernels (when stale) and return the library path."""
+    """Compile the kernels (when stale; one nvcc per source, all at once,
+    then one link) and return the library path."""
     if not _stale():
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", tmp, *SOURCES,
-    ]
+    open(LOG_PATH, "w").close()
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        with open(LOG_PATH, "w") as f:
-            f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, LIB_PATH)
+        objs = [
+            os.path.join(tmpdir, os.path.basename(src) + ".o") for src in SOURCES
+        ]
+        _run_all([
+            [_nvcc(), ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", "-o", obj, src]
+            for src, obj in zip(SOURCES, objs)
+        ])
+        lib = os.path.join(tmpdir, "lib.so")
+        _run_all([[_nvcc(), ARCH, "-shared", "-o", lib, *objs]])
+        os.replace(lib, LIB_PATH)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return LIB_PATH
 
 
@@ -83,5 +107,7 @@ def library() -> ctypes.CDLL:
             lib.pm_wavefront_dp.argtypes = [vp, vp, vp, vp] + [i] * 8 + [vp, vp, vp]
             lib.pm_wavefront_traceback.restype = i
             lib.pm_wavefront_traceback.argtypes = [vp, vp, vp] + [i] * 4 + [vp, vp]
+            lib.pm_banded_dp.restype = i
+            lib.pm_banded_dp.argtypes = [vp] * 4 + [i] * 8 + [vp, vp]
             _lib = lib
     return _lib

@@ -165,14 +165,18 @@ def align_segments_spans(
     return ncols, gapped
 
 
-def align_long_segment(a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring()):
-    """One long segment on the native host banded engine, the band width
-    doubling from 512 until the length difference fits."""
+def align_long_segment(
+    a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring(), width: int | None = None
+):
+    """One long segment on the native host banded engine, at band `width`
+    or, by default, the width doubling from 512 until the length
+    difference fits."""
     from paramugsy_tpu.ops.native import banded_align_native
 
-    width = 512
-    while abs(len(a) - len(b)) >= width // 2:
-        width *= 2
+    if width is None:
+        width = 512
+        while abs(len(a) - len(b)) >= width // 2:
+            width *= 2
     out = banded_align_native(
         np.asarray(a), np.asarray(b), width,
         scoring.match, scoring.mismatch, scoring.gap,

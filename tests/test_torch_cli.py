@@ -1,5 +1,6 @@
 """The port's nucmer CLI against the reference's, and the port's import
-boundary: no module of paramugsy_tpu_torch brings in JAX."""
+boundary: no module of paramugsy_tpu_torch brings in JAX, neither on
+import nor while running ``nucmer`` and ``align -sequential -refine``."""
 import io
 import os
 import subprocess
@@ -93,12 +94,13 @@ def test_smoke_imports_only_the_port():
 
 
 def test_cli_unknown_subcommand_returns_2():
-    assert port_cli.main(["align"]) == 2
+    assert port_cli.main(["mugsy"]) == 2
     assert port_cli.main([]) == 2
 
 
 _NO_JAX = r"""
 import importlib, pkgutil, runpy, sys
+args = sys.argv[1:]
 import paramugsy_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     paramugsy_tpu_torch.__path__, "paramugsy_tpu_torch.")]
@@ -115,24 +117,45 @@ if not torch.cuda.is_available():
         pass
     else:
         raise AssertionError("cuda without a card must raise")
-sys.argv = ["cli", "nucmer", "-ref_seq", sys.argv[1], "-query_seq", sys.argv[2],
-            "-out_delta", sys.argv[3], "-device", "cpu"]
+sys.argv = ["cli", "nucmer", "-ref_seq", args[0], "-query_seq", args[1],
+            "-out_delta", args[2], "-device", "cpu"]
 try:
     runpy.run_module("paramugsy_tpu_torch.cli", run_name="__main__")
 except SystemExit as e:
     assert e.code == 0, e.code
 assert "jax" not in sys.modules, "the nucmer CLI pulled in jax"
+# The multi-genome path with refinement and bridging: count the fused
+# neighbours (bridge_adjacent) and the long refine segments.
+import paramugsy_tpu_torch.lcb.merge as merge
+from paramugsy_tpu_torch.ops import engines
+fused = []
+_fuse = merge._fuse_pair
+merge._fuse_pair = lambda *a: fused.append(1) or _fuse(*a)
+sys.argv = ["cli", "align", "-sequential", *args[3:6], "-refine",
+            "-out_maf", args[6], "-device", "cpu"]
+try:
+    runpy.run_module("paramugsy_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert "jax" not in sys.modules, "align -sequential -refine pulled in jax"
+assert fused and engines.COUNTS.get("native-banded"), (len(fused), engines.COUNTS)
 print(len(names), "modules")
 """
 
 
 def test_port_never_imports_jax(tmp_path):
     ref_fa, qry_fa = _write_fastas(tmp_path)
+    genomes = sorted(
+        os.path.join(ROOT, "tests", "data", "realistic", f) for f in ("g0.fa", "g1.fa", "g2.fa")
+    )
     env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("PARAMUGSY_DEVICE_DP", None)
     res = subprocess.run(
-        [sys.executable, "-c", _NO_JAX, ref_fa, qry_fa, str(tmp_path / "o.delta")],
+        [sys.executable, "-c", _NO_JAX, ref_fa, qry_fa, str(tmp_path / "o.delta"),
+         *genomes, str(tmp_path / "o.maf")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 13
+    assert int(res.stdout.split()[0]) >= 20
     assert (tmp_path / "o.delta").read_text().startswith(ref_fa)
+    assert (tmp_path / "o.maf").read_text().startswith("##maf")
