@@ -12,10 +12,13 @@ alignments on the same engines.  The row-banded DP of the reference
 (`ops/banded.py`, one CUDA kernel for one pair or a batch) is ported too.
 
 Module names follow `paramugsy_tpu` so each counterpart is easy to find.
-`paramugsy_tpu` stays the reference: modules of it that import no JAX
-(`coords`, `formats`, `ops.native`, the host parts of `ops.extend`,
-`utils.obs`) are imported from it, and host helpers of modules that do
-import JAX are copied here.  Nothing in this package imports `jax`.
+`paramugsy_tpu` stays the reference, and this package imports nothing of
+it: the host code it needs is copied here at the same relative path
+(`coords`, `formats`, `profiles`, `lcb.score`, `tree.job_tree`,
+`utils.obs`, `ops.native`, the LCB selection of `lcb.merge`, the guide
+tree of `tree.guide_tree`, the NumPy NW of `ops.extend`), and host helpers
+of the reference's JAX modules are copied into their counterparts.
+Nothing in this package imports `jax`.
 
 Every function that computes on tensors takes an explicit ``device``
 (``"cuda"`` by default; ``"cpu"`` only when named, where each CUDA kernel

@@ -22,7 +22,7 @@ import sys
 
 def delta_text(entries, ref_path: str = "/dev/null", query_path: str = "/dev/null") -> str:
     """Entries as the text of a delta file (the nucmer output format)."""
-    from paramugsy_tpu.formats.delta import DeltaWriter
+    from paramugsy_tpu_torch.formats.delta import DeltaWriter
 
     buf = io.StringIO()
     w = DeltaWriter(buf, ref_path, query_path)
@@ -48,8 +48,8 @@ def _nucmer_main(argv: list[str]) -> int:
     ap.add_argument("-device", default="cuda", help="torch device: cuda or cpu")
     args = ap.parse_args(argv)
 
-    from paramugsy_tpu.formats.delta_maf import delta_to_maf_blocks
-    from paramugsy_tpu.formats.maf import write_maf
+    from paramugsy_tpu_torch.formats.delta_maf import delta_to_maf_blocks
+    from paramugsy_tpu_torch.formats.maf import write_maf
     from paramugsy_tpu_torch.ops.align_pair import (
         AlignConfig,
         align_pair,
@@ -140,7 +140,7 @@ def _align_main(argv: list[str]) -> int:
             print(f"not ported yet: {why} (ROADMAP queue A, item {item})", file=sys.stderr)
             return 2
 
-    from paramugsy_tpu.utils.obs import METRICS, TRACE, MemoryMonitor
+    from paramugsy_tpu_torch.utils.obs import METRICS, TRACE, MemoryMonitor
     from paramugsy_tpu_torch.ops.align_pair import AlignConfig
     from paramugsy_tpu_torch.pipeline import PipelineConfig, align_fastas, load_config
     from paramugsy_tpu_torch.utils.platform import resolve_device

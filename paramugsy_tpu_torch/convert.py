@@ -1,8 +1,9 @@
 """The reference's state -> the port's, so both packages compute from the
 same inputs.
 
-Takes reference objects as they are (dataclasses, numpy arrays, or JAX
-arrays, which numpy reads through ``np.asarray``) and never imports JAX.
+Takes reference objects by duck typing (dataclass fields, numpy arrays,
+or JAX arrays, which numpy reads through ``np.asarray``) and imports
+neither JAX nor the reference package.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from paramugsy_tpu.ops.extend import Scoring
+from paramugsy_tpu_torch.ops.extend import Scoring
 from paramugsy_tpu_torch.ops.align_pair import AlignConfig
 from paramugsy_tpu_torch.pipeline import PipelineConfig
 

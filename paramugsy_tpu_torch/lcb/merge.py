@@ -1,36 +1,336 @@
 """Profile merge of two alignment levels (counterpart of
 paramugsy_tpu.lcb.merge).
 
-`bridge_adjacent` and `merge_blocks` are copied so that their gap
-alignments run on the port's segment engines (`align_segments(...,
-device=)`) and refinement on the port's `refine_blocks`; the reference's
-copies import its JAX encoder and engine selection.  Everything else
-(profiles, translation, LCB selection, untranslation) is host code
-imported from the reference, whose modules import no JAX.
+The host code (profiles, LCB selection, fusing) is copied from the
+reference unchanged.  `bridge_adjacent` and `merge_blocks` take a
+``device`` so that their gap alignments run on the port's segment engines
+(`align_segments(..., device=)`) and refinement on the port's
+`refine_blocks`.
 """
 from __future__ import annotations
 
+from bisect import bisect_left, insort
 from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
-from paramugsy_tpu.coords.range import FORWARD, Range
-from paramugsy_tpu.formats.delta import DeltaEntry
-from paramugsy_tpu.formats.delta_maf import delta_to_maf_blocks
-from paramugsy_tpu.formats.maf import MafBlock, MafSequence
-from paramugsy_tpu.lcb.merge import (
-    _fuse_pair,
-    _Occupancy,
-    make_profiles_mem,
-    select_consistent,
-)
-from paramugsy_tpu.profiles.native_translate import translate_deltas_fast
-from paramugsy_tpu.profiles.untranslate import untranslate_blocks
-from paramugsy_tpu.utils.obs import METRICS
+from paramugsy_tpu_torch.coords.profile import Profile
+from paramugsy_tpu_torch.coords.range import FORWARD, Range
+from paramugsy_tpu_torch.formats.delta import DeltaEntry
+from paramugsy_tpu_torch.formats.delta_maf import delta_to_maf_blocks
+from paramugsy_tpu_torch.formats.maf import MafBlock, MafSequence
 from paramugsy_tpu_torch.lcb.refine import refine_blocks
 from paramugsy_tpu_torch.ops.encode import encode, revcomp_codes_np
 from paramugsy_tpu_torch.ops.extend import align_segments
+from paramugsy_tpu_torch.profiles.make import consensus_text, profiles_of_block
+from paramugsy_tpu_torch.profiles.native_translate import translate_deltas_fast
+from paramugsy_tpu_torch.profiles.untranslate import untranslate_blocks
+from paramugsy_tpu_torch.utils.obs import METRICS
+
+
+def make_profiles_mem(
+    blocks: Sequence[MafBlock], basename: str
+) -> tuple[list[Profile], dict[str, str]]:
+    """In-memory ``mugsy_profiles make``: profiles + consensus pseudo-seqs."""
+    profiles: list[Profile] = []
+    consensus: dict[str, str] = {}
+    for i, b in enumerate(blocks):
+        major = f"{basename}.{basename}_{i:04d}"
+        rows = profiles_of_block(b, major)
+        profiles.extend(rows)
+        consensus[major] = consensus_text([p.text for p in rows])
+    return profiles, consensus
+
+
+class _Occupancy:
+    """Per-sequence disjoint-interval bookkeeping for LCB selection."""
+
+    def __init__(self):
+        self._by_seq: dict[str, list[tuple[int, int]]] = {}
+
+    def free(self, seq: str, r: Range) -> bool:
+        ivs = self._by_seq.get(seq)
+        if not ivs:
+            return True
+        ra = r.abs()
+        i = bisect_left(ivs, (ra.start, ra.start))
+        if i < len(ivs) and ivs[i][0] <= ra.end:
+            return False
+        if i > 0 and ivs[i - 1][1] >= ra.start:
+            return False
+        return True
+
+    def claim(self, seq: str, r: Range) -> None:
+        ra = r.abs()
+        insort(self._by_seq.setdefault(seq, []), (ra.start, ra.end))
+
+    def margins(self, seq: str, r: Range) -> tuple[int, int] | None:
+        """(left, right) bp to shave off ``r``'s absolute ends so the
+        remainder is claim-free, or None when a claim sits strictly in
+        the interior (margin trimming can't fix it)."""
+        ivs = self._by_seq.get(seq)
+        ra = r.abs()
+        if not ivs:
+            return (0, 0)
+        i = bisect_left(ivs, (ra.start, ra.start))
+        if i > 0 and ivs[i - 1][1] >= ra.start:
+            i -= 1
+        left = 0
+        # Claims stacking from the left edge extend the left cut.
+        while i < len(ivs) and ivs[i][0] <= ra.start + left and ivs[i][0] <= ra.end:
+            left = max(left, ivs[i][1] - ra.start + 1)
+            i += 1
+        right = 0
+        j = len(ivs) - 1
+        while j >= 0 and ivs[j][1] >= ra.end - right and ivs[j][1] >= ra.start:
+            right = max(right, ra.end - ivs[j][0] + 1)
+            j -= 1
+        # Any claim left in (i..j) overlapping the remainder is interior.
+        lo, hi = ra.start + left, ra.end - right
+        if lo > hi:
+            return None  # cuts consume the whole range
+        for t in range(max(i, 0), j + 1):
+            s, e = ivs[t]
+            if s <= hi and e >= lo:
+                return None
+        return (min(left, ra.length), min(right, ra.length))
+
+    def uncovered(self, seq: str, length: int) -> list[tuple[int, int]]:
+        """1-indexed inclusive complement intervals."""
+        out = []
+        pos = 1
+        for s, e in self._by_seq.get(seq, []):
+            if s > pos:
+                out.append((pos, s - 1))
+            pos = max(pos, e + 1)
+        if pos <= length:
+            out.append((pos, length))
+        return out
+
+
+def chain_entries(
+    entries: Sequence[DeltaEntry], max_gap: int = 1000
+) -> list[list[DeltaEntry]]:
+    """Group entries into collinear adjacency chains (the synchain-edge
+    role, cf. mafdefrag/main.ml:3-61, applied before LCB selection).
+
+    Entries of the same (ref seq, query seq, orientation) whose ref and
+    query gaps are both within ``max_gap`` and monotone on both axes form
+    one chain.  Chains compete in `select_consistent` as units, so a run
+    of collinear fragments beats an isolated overlapping alignment — the
+    mugsyWGA chaining behaviour the round-1 greedy tiling lacked.
+
+    Each entry joins the open chain with the smallest ref gap (earliest-
+    created on ties) whose query gap also fits.  Open chains are indexed
+    by their last ref end in a sorted list, so only chains ending within
+    ``[start - max_gap - 1, start - 1]`` are scanned and chains falling
+    behind the sweep are retired permanently — amortized O(n log n)
+    instead of the round-2/3 all-open-chains scan (worst-case O(n^2),
+    VERDICT r3 weak #6).
+    """
+    by_key: dict[tuple, list[DeltaEntry]] = {}
+    for e in entries:
+        key = (e.ref_name, e.query_name, e.query_range.is_forward)
+        by_key.setdefault(key, []).append(e)
+    chains: list[list[DeltaEntry]] = []
+    for (_, _, forward), group in by_key.items():
+        group.sort(key=lambda e: e.ref_range.abs().start)
+        # Sorted index of OPEN chains: (last_ref_end, creation_idx) ->
+        # chain; `ends` kept sorted ascending.  A chain whose end drops
+        # below the sweep window can never be joined again (entries
+        # arrive by ascending ref start): retire it.
+        ends: list[tuple[int, int]] = []
+        open_by_id: dict[int, list[DeltaEntry]] = {}
+        n_created = 0
+        retired: list[tuple[int, list[DeltaEntry]]] = []
+        for e in group:
+            er, eq = e.ref_range.abs(), e.query_range.abs()
+            lo, hi = er.start - max_gap - 1, er.start - 1
+            cut = bisect_left(ends, (lo, -1))
+            if cut:
+                for _, cid in ends[:cut]:
+                    retired.append((cid, open_by_id.pop(cid)))
+                del ends[:cut]
+            # Candidates ending in [lo, hi]: scan by end DESC (= ref gap
+            # ASC), creation ASC within equal ends, take the first whose
+            # query gap fits — identical selection to the full scan.
+            hi_i = bisect_left(ends, (hi + 1, -1))
+            best = None
+            j = hi_i - 1
+            while j >= 0 and best is None:
+                end_val = ends[j][0]
+                k = j
+                while k > 0 and ends[k - 1][0] == end_val:
+                    k -= 1
+                for t in range(k, j + 1):
+                    ch = open_by_id[ends[t][1]]
+                    lq = ch[-1].query_range.abs()
+                    if forward:
+                        gap_q = eq.start - lq.end - 1
+                    else:
+                        gap_q = lq.start - eq.end - 1
+                    if 0 <= gap_q <= max_gap:
+                        best = (t, ch)
+                        break
+                j = k - 1
+            if best is None:
+                cid = n_created
+                n_created += 1
+                open_by_id[cid] = [e]
+                insort(ends, (er.end, cid))
+            else:
+                t, ch = best
+                cid = ends[t][1]
+                del ends[t]
+                ch.append(e)
+                insort(ends, (er.end, cid))
+        # Emit in creation order (identical to the full-scan version, so
+        # downstream weight-tie behaviour is unchanged).
+        done = retired + list(open_by_id.items())
+        done.sort(key=lambda t: t[0])
+        chains.extend(ch for _, ch in done)
+    return chains
+
+
+def _trim_to_fit(
+    e: DeltaEntry, occ: _Occupancy, min_length: int
+) -> DeltaEntry | None:
+    """Shave claimed margins off a blocked entry so the remainder tiles.
+
+    An entry overlapping prior claims only at its ends loses the claimed
+    margins (column-exact trims) instead of being dropped whole — without
+    this, a 1-2 bp end overlap discards arbitrarily large alignments
+    (measured: 24.8 kb and 12 kb entries rejected over 1-2 bp on the
+    realistic fixture, costing ~45 kb of core).  Returns the trimmed
+    entry, or None when a claim is interior / the remainder is shorter
+    than ``min_length`` on either axis.
+    """
+    from paramugsy_tpu_torch.formats.delta import trim_entry_left, trim_entry_right
+
+    if not e.ref_range.is_forward:
+        return None
+    for _ in range(4):
+        rm = occ.margins(e.ref_name, e.ref_range)
+        qm = occ.margins(e.query_name, e.query_range)
+        if rm is None or qm is None:
+            return None
+        if rm == (0, 0) and qm == (0, 0):
+            return e
+        # One axis per iteration: each trim consumes the other axis too,
+        # so its margins are recomputed before applying.
+        if rm != (0, 0):
+            lt, rt = rm
+        else:
+            # Absolute query margins map to columns by strand: the low
+            # end of a reverse row is the END of the columns.
+            if e.query_range.is_forward:
+                lt, rt = qm
+            else:
+                rt, lt = qm
+        axis = "ref" if rm != (0, 0) else "query"
+        if lt:
+            e = trim_entry_left(e, axis, lt)
+            if e is None:
+                return None
+        if rt:
+            e = trim_entry_right(e, axis, rt)
+            if e is None:
+                return None
+        if (
+            e.ref_range.length < min_length
+            or e.query_range.length < min_length
+        ):
+            return None
+    rm = occ.margins(e.ref_name, e.ref_range)
+    qm = occ.margins(e.query_name, e.query_range)
+    return e if rm == (0, 0) and qm == (0, 0) else None
+
+
+def select_consistent(
+    entries: Iterable[DeltaEntry],
+    min_length: int = 30,
+    chain_gap: int = 1000,
+) -> tuple[list[DeltaEntry], _Occupancy]:
+    """LCB selection: heaviest-first tiling over collinear CHAINS.
+
+    Each sequence region appears in at most one selected alignment (the
+    delta-filter -1 tiling role); candidates are adjacency chains rather
+    than single entries, ranked by total aligned columns, so collinear
+    runs are kept whole before isolated heavy entries claim their span.
+    A chain blocked by prior claims degrades member-by-member, and a
+    member blocked only at its margins is trimmed to the free remainder
+    (`_trim_to_fit`) rather than dropped.
+    """
+    occ = _Occupancy()
+    kept: list[DeltaEntry] = []
+    usable = [
+        e
+        for e in entries
+        if e.ref_range.length >= min_length
+        and e.query_range.length >= min_length
+    ]
+    chains = chain_entries(usable, max_gap=chain_gap)
+    chains.sort(key=lambda ch: -sum(e.alignment_length() for e in ch))
+    for ch in chains:
+        whole = all(
+            occ.free(e.ref_name, e.ref_range)
+            and occ.free(e.query_name, e.query_range)
+            for e in ch
+        )
+        members = ch if whole else sorted(
+            ch, key=lambda e: -e.alignment_length()
+        )
+        for e in members:
+            # re-check: earlier members of this pass may have claimed
+            # overlapping spans when degrading member-by-member
+            if not whole and not (
+                occ.free(e.ref_name, e.ref_range)
+                and occ.free(e.query_name, e.query_range)
+            ):
+                e = _trim_to_fit(e, occ, min_length)
+                if e is None:
+                    continue
+            occ.claim(e.ref_name, e.ref_range)
+            occ.claim(e.query_name, e.query_range)
+            kept.append(e)
+    kept.sort(key=lambda e: (e.ref_name, e.ref_range.abs().start))
+    return kept, occ
+
+
+def _fuse_pair(
+    a: DeltaEntry,
+    b: DeltaEntry,
+    gap_rg: list[Range],
+    gap_qg: list[Range],
+    gap_cols: int,
+) -> DeltaEntry:
+    """Concatenate two collinear entries plus the aligned gap between them."""
+    import dataclasses
+
+    a_cols = a.alignment_length()
+    off_b = a_cols + gap_cols
+    ref_gaps = (
+        list(a.ref_gaps)
+        + [Range(g.start + a_cols, g.end + a_cols) for g in gap_rg]
+        + [Range(g.start + off_b, g.end + off_b) for g in b.ref_gaps]
+    )
+    query_gaps = (
+        list(a.query_gaps)
+        + [Range(g.start + a_cols, g.end + a_cols) for g in gap_qg]
+        + [Range(g.start + off_b, g.end + off_b) for g in b.query_gaps]
+    )
+    # Both entries' error counts survive the fuse (the gap segment's
+    # mismatches are unknown here; its indel columns are in the gap runs).
+    errors = tuple(x + y for x, y in zip(a.errors, b.errors))
+    return dataclasses.replace(
+        a,
+        ref_range=Range(a.ref_range.start, b.ref_range.end),
+        query_range=Range(a.query_range.start, b.query_range.end),
+        ref_gaps=ref_gaps,
+        query_gaps=query_gaps,
+        errors=errors,
+    )
 
 
 def bridge_adjacent(

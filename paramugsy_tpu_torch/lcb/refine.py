@@ -15,9 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paramugsy_tpu.formats.maf import MafBlock
-from paramugsy_tpu.ops.extend import Scoring
-from paramugsy_tpu_torch.ops.extend import align_segments
+from paramugsy_tpu_torch.formats.maf import MafBlock
+from paramugsy_tpu_torch.ops.extend import Scoring, align_segments
 
 GAP_CODE = 5  # A,C,G,T=0..3, N=4, '-'=5 in the column matrices below
 

@@ -19,9 +19,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from paramugsy_tpu.coords.range import Range
-from paramugsy_tpu.formats.delta import DeltaEntry
-from paramugsy_tpu.ops.extend import Scoring
+from paramugsy_tpu_torch.coords.range import Range
+from paramugsy_tpu_torch.formats.delta import DeltaEntry
 from paramugsy_tpu_torch.ops import engines
 from paramugsy_tpu_torch.ops.chaining import chain_clusters
 from paramugsy_tpu_torch.ops.encode import (
@@ -30,7 +29,7 @@ from paramugsy_tpu_torch.ops.encode import (
     revcomp_codes_np,
     upload_codes,
 )
-from paramugsy_tpu_torch.ops.extend import align_segments_spans
+from paramugsy_tpu_torch.ops.extend import Scoring, align_segments_spans
 from paramugsy_tpu_torch.ops.seeding import (
     auto_sample_shift,
     seed_cluster_both_packed,

@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paramugsy_tpu.coords.range import Range
+from paramugsy_tpu_torch.coords.range import Range
 from paramugsy_tpu_torch.ops.wavefront import _launch_stream, _ptr, pack_pairs
 
 NEG = -(10**8)

@@ -130,7 +130,7 @@ def chain_clusters(
         c_qend[order].astype(np.int64),
         c_weight[order].astype(np.int64),
     )
-    from paramugsy_tpu.ops.native import chain_clusters_native
+    from paramugsy_tpu_torch.ops.native import chain_clusters_native
 
     nat = chain_clusters_native(
         rs, re_, qs, qe, w, max_join_gap, max_join_diagdiff

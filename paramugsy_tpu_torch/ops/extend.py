@@ -1,22 +1,118 @@
 """Inter-anchor gap alignment (counterpart of paramugsy_tpu.ops.extend).
 
 Segments with both sides <= 4096 bp run on the native host NW engine (or
-the reference's NumPy NW when the native library is absent).  Longer ones
+the NumPy NW `nw_align_batch` when the native library is absent).  Longer ones
 go to the port's wavefront engine on a CUDA device; on the CPU they go
 to the native banded engine unless PARAMUGSY_DEVICE_DP=1 (see
-`engines.device_dp_enabled`).  `Scoring`, `nw_align_batch` and `traceback_gaps` are the
-reference's, which import no JAX.
+`engines.device_dp_enabled`).  `Scoring`, `nw_align_batch` and
+`traceback_gaps` are copied from the reference unchanged.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from paramugsy_tpu.coords.range import Range
-from paramugsy_tpu.ops.extend import Scoring, nw_align_batch, traceback_gaps
+from paramugsy_tpu_torch.coords.range import Range
 from paramugsy_tpu_torch.ops import engines
 
 _BUCKETS = (16, 64, 256, 1024, 4096)
+
+NEG = np.int32(-(10**8))
+
+DIAG, UP, LEFT = 0, 1, 2  # UP consumes ref (gap in query), LEFT consumes query
+
+
+@dataclass
+class Scoring:
+    match: int = 2
+    mismatch: int = -3
+    gap: int = -4
+
+
+def nw_align_batch(
+    a: np.ndarray, a_len: np.ndarray, b: np.ndarray, b_len: np.ndarray,
+    scoring: Scoring = Scoring(),
+):
+    """Batched global alignment.
+
+    a, b: [B, S] int8 code arrays (ref, query segments), padded.
+    Returns (dirs [B, S+1, S+1] uint8, score [B]).
+    """
+    B, S = a.shape
+    GAP = scoring.gap
+    dp_prev = np.tile((np.arange(S + 1) * GAP).astype(np.int32), (B, 1))
+    dirs = np.zeros((B, S + 1, S + 1), dtype=np.uint8)
+    dirs[:, 0, 1:] = LEFT
+    j_idx = np.arange(S + 1, dtype=np.int32)
+    gap_j = (GAP * j_idx).astype(np.int32)
+
+    for i in range(1, S + 1):
+        sub = np.where(a[:, i - 1 : i] == b, scoring.match, scoring.mismatch)
+        # mask out padded query columns (j-1 >= b_len) handled by final readout
+        diag = dp_prev[:, :-1] + sub  # j = 1..S
+        up = dp_prev[:, 1:] + GAP
+        cand = np.maximum(diag, up)
+        u = np.empty((B, S + 1), dtype=np.int32)
+        u[:, 0] = np.int32(GAP * i)
+        u[:, 1:] = cand - gap_j[1:]
+        run = np.maximum.accumulate(u, axis=1)
+        dp_cur = run + gap_j
+        d = np.full((B, S + 1), LEFT, dtype=np.uint8)
+        d[:, 0] = UP
+        is_up = dp_cur[:, 1:] == up
+        is_diag = dp_cur[:, 1:] == diag
+        d[:, 1:][is_up] = UP
+        d[:, 1:][is_diag] = DIAG  # prefer diag on ties
+        dirs[:, i] = d
+        dp_prev = dp_cur
+
+    score = dp_prev[np.arange(B), b_len]  # only valid when a_len == S; fix below
+    return dirs, score
+
+
+def traceback_gaps(dirs_i: np.ndarray, a_len: int, b_len: int):
+    """Walk one direction matrix back from (a_len, b_len).
+
+    Returns (ref_gap_runs, query_gap_runs, n_columns): 1-indexed runs in
+    alignment-column space, plus total columns.
+    """
+    i, j = a_len, b_len
+    cols: list[int] = []  # 0=match col, 1=ref gap (LEFT), 2=query gap (UP)
+    while i > 0 or j > 0:
+        if i == 0:
+            d = LEFT
+        elif j == 0:
+            d = UP
+        else:
+            d = dirs_i[i, j]
+        if d == DIAG:
+            cols.append(0)
+            i -= 1
+            j -= 1
+        elif d == UP:
+            cols.append(2)
+            i -= 1
+        else:
+            cols.append(1)
+            j -= 1
+    cols.reverse()
+    n = len(cols)
+    ref_runs: list[Range] = []
+    query_runs: list[Range] = []
+    start = None
+    kind = 0
+    for idx, c in enumerate(cols + [0]):
+        if c != kind:
+            if kind == 1:
+                ref_runs.append(Range(start + 1, idx))
+            elif kind == 2:
+                query_runs.append(Range(start + 1, idx))
+            if c != 0:
+                start = idx
+            kind = c
+    return ref_runs, query_runs, n
 
 
 def _runs_of(rr) -> tuple[list[Range], list[Range]]:
@@ -34,7 +130,7 @@ def align_segments(
 ):
     """Align (ref_codes, query_codes) segment pairs; returns per segment
     (ref_gap_runs, query_gap_runs, n_columns)."""
-    from paramugsy_tpu.ops.native import nw_align_batch_native
+    from paramugsy_tpu_torch.ops.native import nw_align_batch_native
 
     results: list = [None] * len(segs)
     if not segs:
@@ -122,7 +218,7 @@ def align_segments_spans(
     segments over 4096 bp with -1 (and gap-run overflows with -2); those
     are redone through `align_segments`.
     """
-    from paramugsy_tpu.ops.native import nw_segments_native
+    from paramugsy_tpu_torch.ops.native import nw_segments_native
 
     n = len(r0)
     if n == 0:
@@ -171,7 +267,7 @@ def align_long_segment(
     """One long segment on the native host banded engine, at band `width`
     or, by default, the width doubling from 512 until the length
     difference fits."""
-    from paramugsy_tpu.ops.native import banded_align_native
+    from paramugsy_tpu_torch.ops.native import banded_align_native
 
     if width is None:
         width = 512

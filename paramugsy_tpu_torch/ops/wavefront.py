@@ -34,7 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
-from paramugsy_tpu.coords.range import Range
+from paramugsy_tpu_torch.coords.range import Range
 
 NEG = -(10**8)
 DIAG, UP, LEFT = 0, 1, 2

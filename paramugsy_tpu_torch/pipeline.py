@@ -23,19 +23,18 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from paramugsy_tpu.coords.range import FORWARD
-from paramugsy_tpu.formats.delta import DeltaEntry
-from paramugsy_tpu.formats.fasta import normalize_header, read_fasta, species_of_path
-from paramugsy_tpu.formats.maf import MAF_HEADER, MafBlock, MafSequence, read_maf, write_maf
-from paramugsy_tpu.lcb.score import score_blocks
-from paramugsy_tpu.ops.extend import Scoring
-from paramugsy_tpu.tree.guide_tree import GuideTree, parse_newick
-from paramugsy_tpu.tree.job_tree import JobTree, make_job_tree
-from paramugsy_tpu.utils.obs import METRICS
+from paramugsy_tpu_torch.coords.range import FORWARD
+from paramugsy_tpu_torch.formats.delta import DeltaEntry
+from paramugsy_tpu_torch.formats.fasta import normalize_header, read_fasta, species_of_path
+from paramugsy_tpu_torch.formats.maf import MAF_HEADER, MafBlock, MafSequence, read_maf, write_maf
 from paramugsy_tpu_torch.lcb.merge import merge_blocks
+from paramugsy_tpu_torch.lcb.score import score_blocks
 from paramugsy_tpu_torch.ops.align_pair import AlignConfig, align_pair
 from paramugsy_tpu_torch.ops.encode import encode
-from paramugsy_tpu_torch.tree.guide_tree import guide_tree_of_seqs
+from paramugsy_tpu_torch.ops.extend import Scoring
+from paramugsy_tpu_torch.tree.guide_tree import GuideTree, guide_tree_of_seqs, parse_newick
+from paramugsy_tpu_torch.tree.job_tree import JobTree, make_job_tree
+from paramugsy_tpu_torch.utils.obs import METRICS
 from paramugsy_tpu_torch.utils.platform import resolve_device
 
 
