@@ -15,8 +15,16 @@ result line:
    (wavefront DP) and K2 (traceback) at the long-segment engine's bench
    shape (64 pairs x 16 kb, W = 512) and at every wider band the width
    doubling reaches, W = 1024 ... 32768 (past 16384 the rows leave
-   shared memory).  Buffers must be bit-identical; every pair must equal
-   the native banded engine.
+   registers for device memory).  Buffers must be bit-identical; every
+   pair must equal the native banded engine.
+2a. K1's two CUDA designs (one warp per pair; several warps with temporal
+   blocking) against the plain version: a short launch at every width
+   each serves, then the batch-1 refine shapes: one pair of the median
+   refine segment (11.75 kb a side, W = 512) bit-identical to the plain
+   version, and one of the longest (46 kb a side, ~92 k steps) equal to
+   the native banded engine through K1 + K2.  Both are timed per design
+   with CUDA events, in microseconds per anti-diagonal step, and so is
+   the bench shape.
 2b. K3 (``banded_dp``, one pair) and K4 (``banded_dp_batch``) against
    ``banded_dp_plain``: one ~8 kb pair at W = 512 and eight pairs of
    2-8 kb at W = 64, 256, 512, 1024, 4096 and 32768 (the widest band
@@ -45,7 +53,19 @@ result line:
 Launch counters are zeroed before each path (phases 3-4 together, 2b's
 entry points, 5, 6) and read after it.  The script imports only the port
 (``paramugsy_tpu_torch``), never JAX or the JAX package directly.  Without
-a CUDA device it exits 2.
+a CUDA device it exits 2.  ``python3 chip_smoke.py --k1`` runs phases 1
+and 2a only (a quick check after a K1 edit); ``--profile`` runs phase 1
+and a traced run of phase 6 (device time per kernel, busy share).
+Neither prints the result line.
+
+Each kernel's ``bound_ms`` in the ``kernels`` line is the larger of its
+bytes (inputs read once, output written once; for K2 only the path's
+words that this run's walks read) over 3.35 TB/s and its integer
+operations over the card's int32 rate: 132 SMs x 64 int32 lanes x 1.98
+GHz = 16.7 T op/s (a quarter of the data sheet's 67 TFLOP/s float32,
+which counts 128 lanes x 2 operations per SM and clock).  A DP cell
+counts 7 operations (character compare, score select, diag add, gap add,
+two maxima, code update).
 """
 from __future__ import annotations
 
@@ -95,6 +115,15 @@ REALISTIC_MAF_SHA256 = (
 )
 REALISTIC_LONG_SEGMENTS = 151  # the reference's native-banded segments per run
 BANDED_WIDTHS = (64, 256, 512, 1024, 4096, 32768)
+
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_PER_CELL = 7
+# Refine segments of the realistic fixture reach K1 at batch 1, W 512:
+# a sides of 5.0-46.0 kb, median 11.7 kb (anti-diagonal steps 9.9-92.0 k,
+# median 23.5 k).
+REFINE_MEDIAN_BP = 11_750
+REFINE_LONGEST_BP = 46_000
 
 
 def build_pair(rng, n):
@@ -230,6 +259,14 @@ def _once_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least ms, what bounds it) for moving `n_bytes` and doing `n_ops`
+    int32 operations on one H100."""
+    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+
 def check_kernels(pairs, device, reps: int) -> dict:
     """K1 and K2 against their plain versions on one launch of `pairs`,
     and every pair against the native banded engine."""
@@ -267,13 +304,94 @@ def check_kernels(pairs, device, reps: int) -> dict:
         got = wf._runs_of_path_words(host[p, 1:], int(host[p, 0]))
         if got != align_long_segment(a, b):
             raise AssertionError(f"pair {p} differs from native at W={width}")
+    seq_bytes = A.numel() + B.numel() + 8 * len(pairs)
+    k1_bound = bound(seq_bytes + 4 * dirs.numel(), OPS_PER_CELL * dirs.numel() * 16)
+    moves = int(host[:, 0].sum())
+    k2_bound = bound(4 * moves + 8 * len(pairs) + 4 * tb.numel(), OPS_PER_CELL * moves)
     row = {
         "pairs": len(pairs), "length": len(pairs[0][0]), "width": width,
         "steps": steps, "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms,
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
         "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_err,
+        "k1_bound_ms": k1_bound[0], "k1_bound_by": k1_bound[1],
+        "k2_bound_ms": k2_bound[0], "k2_bound_by": k2_bound[1],
     }
     print("kernel_check", json.dumps(row), flush=True)
+    return row
+
+
+def _steps_of(pairs) -> int:
+    return -(-max(len(a) + len(b) for a, b in pairs) // 128) * 128
+
+
+def check_k1_designs(device, bench_pairs) -> dict:
+    """K1's CUDA designs against the plain version: a short launch of two
+    pairs at every width each design serves, then the batch-1 refine
+    shapes and the bench shape, timed per design (CUDA events).  The
+    median refine pair's buffer must be bit-identical to the plain
+    version's for every design; the longest refine pair (plain would take
+    ~30 s) must give the native banded engine's alignment through K1 + K2;
+    at the bench shape every design must give the default's buffer (which
+    phase 2 held against the plain version)."""
+    import torch
+
+    from paramugsy_tpu_torch.ops import wavefront as wf
+    from paramugsy_tpu_torch.ops.extend import align_long_segment
+
+    rng = np.random.default_rng(11)
+    served = {
+        d: [w for w in (32 << k for k in range(10)) if lo <= w <= hi]
+        for d, (_, lo, hi) in wf.DESIGNS.items() if d != "auto"
+    }
+    for width in (32 << k for k in range(10)):
+        pairs = kernel_pairs(rng, 2, 600, min(width // 4 - 1, 300))
+        A, B, al, bl = wf.pack_pairs(pairs, device)
+        kw = dict(steps=_steps_of(pairs), width=width)
+        want = wf.wavefront_dp_plain(A, B, al, bl, **kw)
+        for design in ("auto", *(d for d, ws in served.items() if width in ws)):
+            if not torch.equal(wf.wavefront_dp(A, B, al, bl, design=design, **kw), want):
+                raise AssertionError(f"K1 {design} differs from plain at W={width}")
+    row = {"widths_checked": [32 << k for k in range(10)], "designs": {}}
+
+    median = kernel_pairs(rng, 1, REFINE_MEDIAN_BP, 40)
+    longest = kernel_pairs(rng, 1, REFINE_LONGEST_BP, 40)
+    shapes = {"median": median, "longest": longest, "bench": bench_pairs}
+    packed = {k: wf.pack_pairs(v, device) for k, v in shapes.items()}
+    steps = {k: _steps_of(v) for k, v in shapes.items()}
+    A, B, al, bl = packed["median"]
+    want_median, plain_ms = _once_ms(
+        lambda: wf.wavefront_dp_plain(A, B, al, bl, steps=steps["median"], width=512)
+    )
+    A, B, al, bl = packed["bench"]
+    want_bench = wf.wavefront_dp(A, B, al, bl, steps=steps["bench"], width=512)
+    for design in ("auto", *(d for d, ws in served.items() if 512 in ws)):
+        out = {}
+        for shape, (A, B, al, bl) in packed.items():
+            kw = dict(steps=steps[shape], width=512, design=design)
+            dirs = wf.wavefront_dp(A, B, al, bl, **kw)
+            if shape == "median" and not torch.equal(dirs, want_median):
+                raise AssertionError(f"K1 {design} differs from plain at the median refine pair")
+            if shape == "bench" and not torch.equal(dirs, want_bench):
+                raise AssertionError(f"K1 {design} differs from the default at the bench shape")
+            if shape == "longest":
+                tb = wf.wavefront_traceback(dirs, al, bl, width=512).cpu().numpy()
+                a, b = longest[0]
+                if wf._runs_of_path_words(tb[0, 1:], int(tb[0, 0])) != align_long_segment(a, b):
+                    raise AssertionError(f"K1 {design}: longest refine pair differs from native")
+            ms = _cuda_ms(lambda: wf.wavefront_dp(A, B, al, bl, **kw), 5 if shape == "bench" else 20)
+            out[shape] = {"ms": ms, "us_per_step": ms * 1e3 / steps[shape]}
+        row["designs"][design] = out
+    row["median"] = {
+        "steps": steps["median"], "plain_ms": plain_ms,
+        "bound": bound(
+            2 * REFINE_MEDIAN_BP + 8 + 4 * want_median.numel(),
+            OPS_PER_CELL * want_median.numel() * 16,
+        ),
+        # One pair can use one SM: 1/132 of the card's int32 rate.
+        "one_sm_bound_ms": OPS_PER_CELL * want_median.numel() * 16 / (INT32_OPS_PER_S / 132) * 1e3,
+    }
+    row["longest_steps"] = steps["longest"]
+    print("k1_designs", json.dumps(row), flush=True)
     return row
 
 
@@ -318,11 +436,13 @@ def check_banded(device, reps: int) -> dict:
     plain, k3_plain_ms = _once_ms(lambda: bd.banded_dp_plain(A, B, al, bl, **kw))
     if not torch.equal(dirs, plain[:, 0]):
         raise AssertionError("K3 differs from its plain version at W=512")
+    k3_bound = bound(A.numel() + B.numel() + 8 + dirs.numel(), OPS_PER_CELL * dirs.numel())
     row = {
         "k3": {
             "length": len(a), "width": 512, "max_abs_err": _dirs_err(dirs, plain[:, 0]),
             "ms": _cuda_ms(lambda: bd.banded_dp(A, B, al, bl, **kw), reps),
             "plain_ms": k3_plain_ms,
+            "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
         },
         "k4": [],
     }
@@ -333,11 +453,16 @@ def check_banded(device, reps: int) -> dict:
         plain, plain_ms = _once_ms(lambda: bd.banded_dp_plain(A, B, al, bl, **kw))
         if not torch.equal(dirs, plain):
             raise AssertionError(f"K4 differs from its plain version at W={width}")
+        k4_bound = bound(
+            A.numel() + B.numel() + 8 * len(pairs) + dirs.numel(),
+            OPS_PER_CELL * dirs.numel(),
+        )
         row["k4"].append({
             "pairs": len(pairs), "rows": kw["rows"], "width": width,
             "max_abs_err": _dirs_err(dirs, plain),
             "ms": _cuda_ms(lambda: bd.banded_dp_batch(A, B, al, bl, **kw), reps),
             "plain_ms": plain_ms,
+            "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
         })
 
     # The path: the two entry points, counted.
@@ -559,7 +684,101 @@ def realistic_phase(device) -> dict:
     return row
 
 
-def main() -> int:
+def profile_realistic(device) -> dict:
+    """The realistic fixture through ``align -sequential -refine``: one
+    warm-up run, two untraced runs, then one run under torch.profiler;
+    device time per kernel (sum of CUDA self time) and the busy share of
+    the traced wall."""
+    import glob
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paramugsy_tpu_torch import cli
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "realistic", "*.fa")))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "realistic.maf")
+        argv = ["align", "-sequential", *paths, "-refine", "-out_maf", out, "-device", "cuda"]
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise AssertionError("realistic: align CLI failed")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        _zero_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise AssertionError("realistic: align CLI failed")
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            if hashlib.sha256(f.read()).hexdigest() != REALISTIC_MAF_SHA256:
+                raise AssertionError("realistic: MAF differs from the JAX reference")
+    kernels = {}
+    for ev in prof.key_averages():
+        ms = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        if ms > 0:
+            kernels[ev.key] = (ms, ev.count)
+    busy = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    row = {
+        "untraced_warm_s": walls[1:], "traced_s": traced,
+        "device_busy_ms": busy if busy else "not measured",
+        "busy_share": busy / 1e3 / traced if busy else "not measured",
+        "launches": _launch_counts(),
+        "top_kernels_ms_count": {k: v for k, v in top},
+    }
+    print("profile_realistic", json.dumps(row), flush=True)
+    return row
+
+
+def print_sass_mix(kernels: dict) -> None:
+    """Per named K1 instantiation (mangled-name fragment -> lanes per
+    thread), the SASS instructions of the built library per DP cell of one
+    16-step block (all of the kernel's instructions over 16 * L), and the
+    commonest opcodes: what the issue-rate bound counts."""
+    import collections
+    import re
+
+    from paramugsy_tpu_torch.ops import _kernels
+
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", _kernels.LIB_PATH], capture_output=True, text=True, timeout=300
+    ).stdout
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0]
+        for frag, lanes in kernels.items():
+            if frag in name:
+                ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", chunk)
+                mix = collections.Counter(o.split(".")[0] for o in ops).most_common(14)
+                print("sass", frag, json.dumps({
+                    "instructions": len(ops), "per_cell": len(ops) / (16 * lanes), "top": mix,
+                }), flush=True)
+
+
+def print_declaration(name: str) -> None:
+    """Print the CUDA toolkit header lines that document `name` (the tie
+    semantics of a DPX intrinsic's predicate)."""
+    from paramugsy_tpu_torch.ops import _kernels
+
+    include = os.path.join(os.path.dirname(os.path.dirname(_kernels._nvcc())), "include")
+    for dirpath, _, files in os.walk(include):
+        for fname in sorted(files):
+            path = os.path.join(dirpath, fname)
+            with open(path, errors="replace") as f:
+                lines = f.readlines()
+            for i, line in enumerate(lines):
+                if name + "(" in line and "__DEVICE" in line.upper() + lines[i - 1].upper():
+                    print(f"{path}:{i + 1}:", "".join(lines[max(0, i - 14) : i + 2]), flush=True)
+                    return
+    print(f"{name}: no declaration found under {include}", flush=True)
+
+
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -588,10 +807,26 @@ def main() -> int:
     build_native()
     print(f"native build: {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # Phase 2: kernels against their plain versions, at the bench shape
-    # and at every band width up to one past shared memory's.
     rng = np.random.default_rng(99)
-    bench_shape = check_kernels(kernel_pairs(rng, 64, 16384, 20), device, reps=5)
+    bench_pairs = kernel_pairs(rng, 64, 16384, 20)
+    if argv == ["--k1"]:
+        print_declaration("__vibmax_s32")
+        print_sass_mix({
+            "reg_kernelILi6ELi128ELb1ELb0E": 6,
+            "reg_kernelILi6ELi128ELb1ELb1E": 6,
+            "reg_kernelILi16ELi32ELb1ELb0E": 16,
+        })
+        check_k1_designs(device, bench_pairs)
+        return 0
+    if argv == ["--profile"]:
+        profile_realistic(device)
+        return 0
+    if argv:
+        raise SystemExit(f"usage: {sys.argv[0]} [--k1 | --profile]")
+
+    # Phase 2: kernels against their plain versions, at the bench shape
+    # and at every band width up to one past the register kernel's.
+    bench_shape = check_kernels(bench_pairs, device, reps=5)
     wide = [
         check_kernels(kernel_pairs(rng, n_pairs, length, n_del), device, reps=3)
         for n_pairs, length, n_del in (
@@ -603,6 +838,9 @@ def main() -> int:
     widths = [bench_shape["width"]] + [r["width"] for r in wide]
     if widths != [512, 1024, 2048, 4096, 8192, 16384, 32768]:
         raise AssertionError(f"kernel checks reached widths {widths}")
+
+    # Phase 2a: K1's designs, and the batch-1 refine shapes.
+    k1_designs = check_k1_designs(device, bench_pairs)
 
     # Phase 2b: K3/K4 against their plain version, then their path.
     banded = check_banded(device, reps=3)
@@ -648,6 +886,10 @@ def main() -> int:
             "max_abs_err": max(r["k1_max_abs_err"] for r in [bench_shape, *wide]),
             "ms": bench_shape["k1_ms"],
             "plain_ms": bench_shape["k1_plain_ms"],
+            "bound_ms": bench_shape["k1_bound_ms"],
+            "bound_by": bench_shape["k1_bound_by"],
+            "library_ms": None,
+            "us_per_step_batch1": k1_designs["designs"]["auto"]["median"]["us_per_step"],
         },
         {
             "name": "wavefront_traceback",
@@ -658,6 +900,9 @@ def main() -> int:
             "max_abs_err": max(r["k2_max_abs_err"] for r in [bench_shape, *wide]),
             "ms": bench_shape["k2_ms"],
             "plain_ms": bench_shape["k2_plain_ms"],
+            "bound_ms": bench_shape["k2_bound_ms"],
+            "bound_by": bench_shape["k2_bound_by"],
+            "library_ms": None,
         },
         {
             "name": "banded_dp",
@@ -668,6 +913,9 @@ def main() -> int:
             "max_abs_err": banded["k3"]["max_abs_err"],
             "ms": banded["k3"]["ms"],
             "plain_ms": banded["k3"]["plain_ms"],
+            "bound_ms": banded["k3"]["bound_ms"],
+            "bound_by": banded["k3"]["bound_by"],
+            "library_ms": None,
         },
         {
             "name": "banded_dp_batch",
@@ -678,6 +926,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in banded["k4"]),
             "ms": k4_main["ms"],
             "plain_ms": k4_main["plain_ms"],
+            "bound_ms": k4_main["bound_ms"],
+            "bound_by": k4_main["bound_by"],
+            "library_ms": None,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -699,4 +950,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

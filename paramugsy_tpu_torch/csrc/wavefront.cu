@@ -8,28 +8,59 @@
 // go DIAG > UP > LEFT; step d's 2-bit code lands in bits 2*((d-1) % 16)
 // of dirs[(d-1) / 16][pair][w].  Nothing is masked: every lane computes
 // exactly what the reference computes, so whole buffers are bit-identical.
-//
-// What bounds it on the card: the anti-diagonals of one pair are strictly
-// sequential, so each step costs one block-wide barrier plus a shared-
-// memory round trip; the arithmetic per cell is a handful of integer ops,
-// and device memory sees one coalesced int32 store per lane per 16 steps
-// plus L1-cached sequence bytes.  Latency per step, not bandwidth or ALU
-// throughput, sets the time.  The design keeps that step short: one block
-// per pair (the batch fills the SMs), each thread owns LPT lanes and keeps
-// its two previous scores and its code word in registers, and only the
-// previous row travels through shared memory (double-buffered, so one
-// __syncthreads per step suffices).  The reference's rolled character
-// windows are replaced by direct reads of the int8 sequences:
+// The reference's rolled character windows are direct reads
 // a[floor((d - w + W/2) / 2) - 1] and b[floor((d + w - W/2) / 2) - 1],
 // pad 4 (a) and 5 (b) outside the sequence.
 //
-// Two shared-memory rows fit up to W = 16384 (16 lanes per thread of a
-// 1024-thread block).  The band doubles without bound, so wider bands take
-// a second kernel that keeps both rows in a device scratch buffer (row d-2
-// is overwritten in place by row d, lane by lane, by the thread that owns
-// the lane) and accumulates the code words in dirs itself.  Each step then
-// costs global-memory round trips, mostly L2 hits; such bands are rare
-// (a length difference of 8192 bp or more inside one segment).
+// What bounds it on the card.  The anti-diagonals of one pair are
+// strictly sequential, and refinement sends its long segments one at a
+// time, so a launch is often one pair on one SM.  The work of a step is
+// W cells of a handful of integer operations: at W = 512 and ~7 operations
+// per cell, 3.6 k lane-operations, 56 cycles of one SM's 64 INT32 lanes
+// per clock.  The memory traffic (one int32 word per lane per 16 steps)
+// is far below the card's rate.  So the time per step is the SM's issue
+// rate plus whatever latency each step exposes.  The first kernel (one
+// lane per thread, rows in shared memory, one __syncthreads() and two
+// bounds-checked global byte loads per cell per step) spent ~400 cycles a
+// step, mostly exposed load and barrier latency.
+//
+// The design here (`wavefront_reg_kernel`) keeps everything a step needs
+// in registers:
+//  * each thread owns L contiguous lanes and keeps, per lane, its score at
+//    steps d-1 and d-2 (plus the gap, so up/left/diag each take one add)
+//    and its code word;
+//  * neighbour lanes of other threads come through __shfl_up_sync /
+//    __shfl_down_sync, two per step, no barrier;
+//  * for a fixed lane, the a and b indices each advance by one every two
+//    steps, so the 8 + L/2 bytes of a and of b that a thread's lanes read
+//    in 16 steps sit in registers, loaded once per 16 steps (prefetched a
+//    block ahead where registers allow).  The wrapper pads both sequences
+//    on both sides, so no load needs a bounds check;
+//  * the cell is two maxima, each with its (a >= b) predicate, which give
+//    the code in the reference's tie order.  Hopper's DPX intrinsic
+//    __vibmax_s32 computes exactly that pair (its predicate is a >= b,
+//    crt/device_functions.h), but measured slower per step than plain
+//    max + compare on the card (PERF.md), so it stays as design 3, for
+//    comparison.
+// Two ways to give a pair more than one warp's issue slots:
+//  * design 1, one warp per pair (W <= 1024): no barrier at all, but a
+//    step costs L * ~7 instructions on one scheduler (L = 16 at W 512);
+//  * design 2, temporal blocking (W >= 256): the band is cut into strips
+//    of S lanes, one warp per strip, and each warp also computes 32 halo
+//    lanes on each side (the dependency cone widens by one lane per step,
+//    so 32 steps use them up).  Halo lanes compute the same values as
+//    their owners; only owned lanes store.  Every 32 steps the warps swap
+//    their owned lanes' two rows through shared memory (two
+//    __syncthreads()).  At W 512: four warps of 192 lanes (L = 6), one per
+//    scheduler, 1.5x the cells of design 1 on 4x its issue slots.
+// `pm_wavefront_dp` with design 0 takes the faster of the two at each
+// width (see PERF.md for the measurements).
+//
+// Bands wider than 16384 lanes (a length difference of 8192 bp or more
+// inside one segment) take `wavefront_kernel_wide`, which keeps both rows
+// in a device scratch buffer (row d-2 is overwritten in place by row d,
+// lane by lane, by the thread that owns the lane) and accumulates the code
+// words in dirs itself.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -38,92 +69,185 @@ namespace {
 constexpr int kNeg = -100000000;
 constexpr int kDiag = 0, kUp = 1, kLeft = 2;
 constexpr int kPadA = 4, kPadB = 5;
-// Widest band whose two rows fit shared memory (2 x 64 KiB).
-constexpr int kMaxSmemWidth = 16384;
+// Widest band of the register kernel.
+constexpr int kMaxRegWidth = 16384;
 
 // floor(x / 2) for negative x as well (arithmetic shift).
-__device__ __forceinline__ int floor_half(int x) { return x >> 1; }
+__host__ __device__ constexpr int floor_half(int x) { return x >> 1; }
 
-// Blocks of up to 1024 threads: the bound caps registers at 64 per thread,
-// so a full block fits the SM's register file for every LPT.
-template <int LPT>
-__global__ void __launch_bounds__(1024) wavefront_kernel(const int8_t* __restrict__ a,
-                                 const int8_t* __restrict__ b,
-                                 const int32_t* __restrict__ a_len,
-                                 const int32_t* __restrict__ b_len,
-                                 int a_stride, int b_stride, int steps,
-                                 int width, int batch, int match,
-                                 int mismatch, int gap,
-                                 int32_t* __restrict__ dirs) {
-  extern __shared__ int rows[];  // [2][width]: rows d-1 and d, alternating
-  const int p = blockIdx.x;
-  const int half = width >> 1;
-  const int8_t* ap = a + static_cast<size_t>(p) * a_stride;
-  const int8_t* bp = b + static_cast<size_t>(p) * b_stride;
-  const int la = a_len[p];
-  const int lb = b_len[p];
+// gl, gr = g of lanes w0 - 1 and w0 + L from the neighbour threads, or
+// kNeg past the band's edges (the reference's up/left there).
+template <int L>
+__device__ __forceinline__ void neighbours(const int (&g)[L], unsigned mask,
+                                           bool at_left, bool at_right,
+                                           int& gl, int& gr) {
+  gl = __shfl_up_sync(mask, g[L - 1], 1);
+  gr = __shfl_down_sync(mask, g[0], 1);
+  if (at_left) gl = kNeg;
+  if (at_right) gr = kNeg;
+}
 
-  int prev1[LPT], prev2[LPT];
-  uint32_t acc[LPT];
+// The sequence bytes of 16 steps from d0 on: xa[j] = a[(d0 - w0 + W/2) / 2
+// - L/2 + j], xb[j] = b[(d0 + w0 - W/2) / 2 - 1 + j].  Cell (d0 + s,
+// w0 + l), s in 1..16, reads xa[floor((s - l) / 2) + L/2 - 1] and
+// xb[floor((s + l) / 2)].
+template <int L, int N>
+__device__ __forceinline__ void load(const int8_t* ap, const int8_t* bp,
+                                     int d0, int w0, int half, int (&xa)[N],
+                                     int (&xb)[N]) {
+  const int8_t* pa = ap + floor_half(d0 - w0 + half) - L / 2;
+  const int8_t* pb = bp + floor_half(d0 + w0 - half) - 1;
 #pragma unroll
-  for (int l = 0; l < LPT; ++l) {
-    const int w = threadIdx.x + l * blockDim.x;
-    prev1[l] = (w == half) ? 0 : kNeg;  // step 0: only cell (0, 0)
-    prev2[l] = kNeg;
-    acc[l] = 0;
-    rows[w] = prev1[l];
-  }
-  __syncthreads();
-
-  for (int d = 1; d <= steps; ++d) {
-    const int* r1 = rows + ((d - 1) & 1) * width;
-    int* r0 = rows + (d & 1) * width;
-    const int slot = (d - 1) & 15;
-#pragma unroll
-    for (int l = 0; l < LPT; ++l) {
-      const int w = threadIdx.x + l * blockDim.x;
-      const int ia = floor_half(d - w + half) - 1;
-      const int ib = floor_half(d + w - half) - 1;
-      const int ca = (ia >= 0 && ia < la) ? ap[ia] : kPadA;
-      const int cb = (ib >= 0 && ib < lb) ? bp[ib] : kPadB;
-      const int diag = prev2[l] + (ca == cb ? match : mismatch);
-      const int up = (w < width - 1) ? r1[w + 1] + gap : kNeg;
-      const int left = (w > 0) ? r1[w - 1] + gap : kNeg;
-      const int dp = max(max(diag, up), left);
-      const uint32_t code = dp == diag ? kDiag : (dp == up ? kUp : kLeft);
-      acc[l] |= code << (2 * slot);
-      r0[w] = dp;
-      prev2[l] = prev1[l];
-      prev1[l] = dp;
-      if (slot == 15) {
-        dirs[(static_cast<size_t>((d - 1) >> 4) * batch + p) * width + w] =
-            static_cast<int32_t>(acc[l]);
-        acc[l] = 0;
-      }
-    }
-    __syncthreads();
+  for (int j = 0; j < N; ++j) {
+    xa[j] = pa[j];
+    xb[j] = pb[j];
   }
 }
 
-template <int LPT>
-cudaError_t launch(const int8_t* a, const int8_t* b, const int32_t* a_len,
-                   const int32_t* b_len, int a_stride, int b_stride,
-                   int steps, int width, int batch, int match, int mismatch,
-                   int gap, int32_t* dirs, cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(width) * sizeof(int);
+// a, b: padded code rows, [batch][stride], the sequence at [front, ...),
+// pads everywhere else (the wrapper's `pad_rows`).  One block per pair;
+// blockDim.x = 32 * (W / strip) threads for design 2, W / L for design 1
+// (strip = W).  L even, so every thread's first lane w0 is even and the
+// windows below start at exact halves.
+template <int L, int MAXT, bool PREFETCH, bool DPX>
+__global__ void __launch_bounds__(MAXT) wavefront_reg_kernel(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ b, int stride,
+    int front, int steps, int width, int strip, int batch, int match,
+    int mismatch, int gap, int32_t* __restrict__ dirs) {
+  constexpr int N = 8 + L / 2;  // bytes of a and of b read per 16 steps
+  extern __shared__ int rows[];  // [2][width]: g and g2 of owned lanes
+  const int p = blockIdx.x;
+  const int half = width >> 1;
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const bool blocked = blockDim.x > 32;
+  const int ext = blocked ? 32 * L : width;  // lanes one warp computes
+  const int own_lo = warp * strip;
+  const int own_hi = own_lo + strip;
+  const int e0 = min(max(own_lo - (ext - strip) / 2, 0), width - ext);
+  const int w0 = e0 + t * L;
+  const bool at_left = w0 == 0;
+  const bool at_right = w0 + L == width;
+  const unsigned mask = blockDim.x >= 32 ? 0xffffffffu : (1u << blockDim.x) - 1u;
+  const int8_t* ap = a + static_cast<size_t>(p) * stride + front;
+  const int8_t* bp = b + static_cast<size_t>(p) * stride + front;
+  const int mg = match - gap;
+  const int xg = mismatch - gap;
+
+  // g = score at step d-1 plus gap (the up/left operand); g2 = score at
+  // step d-2 plus gap, so diag = g2 + (sub - gap).
+  int g[L], g2[L];
+  uint32_t acc[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    g[l] = (w0 + l == half ? 0 : kNeg) + gap;  // step 0: only cell (0, 0)
+    g2[l] = kNeg + gap;                        // step -1
+    acc[l] = 0;
+  }
+  int gl, gr;  // g of lanes w0 - 1 and w0 + L (kNeg past the band)
+  neighbours<L>(g, mask, at_left, at_right, gl, gr);
+
+  // This block's bytes (ca, cb) and, with PREFETCH, the next block's.
+  int ca[N], cb[N], na[N], nb[N];
+  if constexpr (PREFETCH) load<L, N>(ap, bp, 0, w0, half, ca, cb);
+
+  for (int d0 = 0; d0 < steps; d0 += 16) {
+    if constexpr (PREFETCH) {
+      load<L, N>(ap, bp, d0 + 16, w0, half, na, nb);
+    } else {
+      load<L, N>(ap, bp, d0, w0, half, ca, cb);
+    }
+#pragma unroll
+    for (int s = 1; s <= 16; ++s) {
+      int nd[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const int up = l + 1 < L ? g[l + 1] : gr;
+        const int left = l > 0 ? g[l - 1] : gl;
+        const int diag =
+            g2[l] + (ca[floor_half(s - l) + L / 2 - 1] == cb[floor_half(s + l)] ? mg : xg);
+        bool up_ge, diag_ge;
+        int m1, dp;
+        if constexpr (DPX) {
+          m1 = __vibmax_s32(up, left, &up_ge);
+          dp = __vibmax_s32(diag, m1, &diag_ge);
+        } else {
+          up_ge = up >= left;
+          m1 = max(up, left);
+          diag_ge = diag >= m1;
+          dp = max(diag, m1);
+        }
+        if (!diag_ge) acc[l] |= (up_ge ? uint32_t{kUp} : uint32_t{kLeft}) << (2 * (s - 1));
+        nd[l] = dp + gap;
+      }
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        g2[l] = g[l];
+        g[l] = nd[l];
+      }
+      neighbours<L>(g, mask, at_left, at_right, gl, gr);
+    }
+    int32_t* drow = dirs + (static_cast<size_t>(d0 >> 4) * batch + p) * width;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int w = w0 + l;
+      if (w >= own_lo && w < own_hi) drow[w] = static_cast<int32_t>(acc[l]);
+      acc[l] = 0;
+    }
+    if (blocked && (d0 & 16)) {
+      // Every 32 steps, owned lanes out and halo lanes in: the halo is
+      // valid again.
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const int w = w0 + l;
+        if (w >= own_lo && w < own_hi) {
+          rows[w] = g[l];
+          rows[width + w] = g2[l];
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const int w = w0 + l;
+        if (w < own_lo || w >= own_hi) {
+          g[l] = rows[w];
+          g2[l] = rows[width + w];
+        }
+      }
+      __syncthreads();
+      neighbours<L>(g, mask, at_left, at_right, gl, gr);
+    }
+    if constexpr (PREFETCH) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        ca[j] = na[j];
+        cb[j] = nb[j];
+      }
+    }
+  }
+}
+
+template <int L, int MAXT, bool PREFETCH, bool DPX = false>
+cudaError_t launch(const int8_t* a, const int8_t* b, int stride, int front,
+                   int steps, int width, int strip, int batch, int match,
+                   int mismatch, int gap, int32_t* dirs, cudaStream_t stream) {
+  const int threads = strip == width ? width / L : 32 * (width / strip);
+  if (threads > MAXT || (strip != width && 32 * L - strip < 64))
+    return cudaErrorInvalidConfiguration;
+  const size_t smem = threads > 32 ? 2 * static_cast<size_t>(width) * sizeof(int) : 0;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        wavefront_kernel<LPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        wavefront_reg_kernel<L, MAXT, PREFETCH, DPX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  wavefront_kernel<LPT><<<batch, width / LPT, smem, stream>>>(
-      a, b, a_len, b_len, a_stride, b_stride, steps, width, batch, match,
-      mismatch, gap, dirs);
+  wavefront_reg_kernel<L, MAXT, PREFETCH, DPX><<<batch, threads, smem, stream>>>(
+      a, b, stride, front, steps, width, strip, batch, match, mismatch, gap,
+      dirs);
   return cudaGetLastError();
 }
 
-// Bands wider than kMaxSmemWidth.  rows: [batch][2][width] scratch; row d
+// Bands wider than kMaxRegWidth.  rows: [batch][2][width] scratch; row d
 // lives at rows[(d & 1) * width]: before lane w is overwritten it still
 // holds row d-2, the lane's diag source.
 __global__ void __launch_bounds__(1024) wavefront_kernel_wide(
@@ -169,46 +293,80 @@ __global__ void __launch_bounds__(1024) wavefront_kernel_wide(
 
 }  // namespace
 
-// a: int8 [batch, a_stride]; b: int8 [batch, b_stride]; a_len, b_len:
-// int32 [batch]; dirs: int32 [steps/16, batch, width]; scratch: int32
-// [batch, 2, width] when width > 16384, else unused.  width is a power of
-// two >= 32; steps a multiple of 16.  Returns a cudaError_t.
-extern "C" int pm_wavefront_dp(const void* a, const void* b,
-                               const void* a_len, const void* b_len,
-                               int a_stride, int b_stride, int steps,
-                               int width, int batch, int match, int mismatch,
-                               int gap, void* dirs, void* scratch,
-                               void* stream) {
-  if (width < 32 || (width & (width - 1)) || steps % 16 || batch <= 0)
+// a, b: int8 [batch, stride] padded code rows (the sequence at [front,
+// ...), pad 4 in a and 5 in b elsewhere); front >= W/4 + 8 and stride >=
+// front + steps/2 + W/4 + 16, so every read is inside the row.  dirs: int32
+// [steps/16, batch, width].  width is a power of two in [32, 16384];
+// steps a multiple of 16.  design: 0 = the default for the width, 1 = one
+// warp per pair (width <= 1024), 2 = temporal blocking (width >= 256),
+// 3 = design 2 with the DPX cell (width 512 only, for comparison).
+// Returns a cudaError_t.
+extern "C" int pm_wavefront_dp(const void* a, const void* b, int stride,
+                               int front, int steps, int width, int batch,
+                               int match, int mismatch, int gap, int design,
+                               void* dirs, void* stream) {
+  if (width < 32 || width > kMaxRegWidth || (width & (width - 1)) ||
+      steps % 16 || batch <= 0 || front < width / 4 + 8 ||
+      stride < front + steps / 2 + width / 4 + 16)
     return cudaErrorInvalidValue;
+  if (design == 0) design = width >= 256 ? 2 : 1;
   auto s = static_cast<cudaStream_t>(stream);
   auto pa = static_cast<const int8_t*>(a);
   auto pb = static_cast<const int8_t*>(b);
-  auto pla = static_cast<const int32_t*>(a_len);
-  auto plb = static_cast<const int32_t*>(b_len);
   auto pd = static_cast<int32_t*>(dirs);
-  if (width > kMaxSmemWidth) {
-    if (scratch == nullptr) return cudaErrorInvalidValue;
-    wavefront_kernel_wide<<<batch, 1024, 0, s>>>(
-        pa, pb, pla, plb, a_stride, b_stride, steps, width, batch, match,
-        mismatch, gap, static_cast<int*>(scratch), pd);
-    return cudaGetLastError();
+#define PM_LAUNCH(L, MAXT, PF, STRIP)                                           \
+  return launch<L, MAXT, PF>(pa, pb, stride, front, steps, width, STRIP,       \
+                             batch, match, mismatch, gap, pd, s)
+  if (design == 1) {
+    switch (width) {
+      case 32: PM_LAUNCH(2, 32, true, width);
+      case 64: PM_LAUNCH(2, 32, true, width);
+      case 128: PM_LAUNCH(4, 32, true, width);
+      case 256: PM_LAUNCH(8, 32, true, width);
+      case 512: PM_LAUNCH(16, 32, true, width);
+      case 1024: PM_LAUNCH(32, 32, false, width);
+      default: return cudaErrorInvalidValue;
+    }
   }
-  switch (width > 1024 ? width / 1024 : 1) {
-    case 1:
-      return launch<1>(pa, pb, pla, plb, a_stride, b_stride, steps, width,
-                       batch, match, mismatch, gap, pd, s);
-    case 2:
-      return launch<2>(pa, pb, pla, plb, a_stride, b_stride, steps, width,
-                       batch, match, mismatch, gap, pd, s);
-    case 4:
-      return launch<4>(pa, pb, pla, plb, a_stride, b_stride, steps, width,
-                       batch, match, mismatch, gap, pd, s);
-    case 8:
-      return launch<8>(pa, pb, pla, plb, a_stride, b_stride, steps, width,
-                       batch, match, mismatch, gap, pd, s);
-    default:
-      return launch<16>(pa, pb, pla, plb, a_stride, b_stride, steps, width,
-                        batch, match, mismatch, gap, pd, s);
+  if (design == 2) {
+    // Strips of 128 lanes (192 computed, L = 6) up to 32 warps; wider
+    // bands widen the strips.
+    switch (width) {
+      case 256: PM_LAUNCH(6, 64, true, 128);
+      case 512: PM_LAUNCH(6, 128, true, 128);
+      case 1024: PM_LAUNCH(6, 256, true, 128);
+      case 2048: PM_LAUNCH(6, 512, true, 128);
+      case 4096: PM_LAUNCH(6, 1024, false, 128);
+      case 8192: PM_LAUNCH(10, 1024, false, 256);
+      case 16384: PM_LAUNCH(18, 1024, false, 512);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (design == 3 && width == 512)  // design 2 with the DPX cell
+    return launch<6, 128, true, true>(pa, pb, stride, front, steps, width,
+                                      128, batch, match, mismatch, gap, pd, s);
+#undef PM_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+// Bands wider than 16384 lanes.  a: int8 [batch, a_stride]; b: int8
+// [batch, b_stride] (unpadded; contents past each pair's length are not
+// read); a_len, b_len: int32 [batch]; dirs: int32 [steps/16, batch,
+// width]; scratch: int32 [batch, 2, width].  width a power of two; steps
+// a multiple of 16.  Returns a cudaError_t.
+extern "C" int pm_wavefront_dp_wide(const void* a, const void* b,
+                                    const void* a_len, const void* b_len,
+                                    int a_stride, int b_stride, int steps,
+                                    int width, int batch, int match,
+                                    int mismatch, int gap, void* dirs,
+                                    void* scratch, void* stream) {
+  if (width <= kMaxRegWidth || (width & (width - 1)) || steps % 16 ||
+      batch <= 0 || scratch == nullptr)
+    return cudaErrorInvalidValue;
+  wavefront_kernel_wide<<<batch, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+      static_cast<const int32_t*>(a_len), static_cast<const int32_t*>(b_len),
+      a_stride, b_stride, steps, width, batch, match, mismatch, gap,
+      static_cast<int*>(scratch), static_cast<int32_t*>(dirs));
+  return cudaGetLastError();
 }

@@ -39,10 +39,19 @@ from paramugsy_tpu_torch.coords.range import Range
 NEG = -(10**8)
 DIAG, UP, LEFT = 0, 1, 2
 PAD_A, PAD_B = 4, 5
-# Widest band whose two score rows the CUDA kernel keeps in shared memory
-# (16 lanes per thread of a 1024-thread block, 128 KiB); wider bands get a
-# device scratch buffer for the rows.
-MAX_SMEM_WIDTH = 1 << 14
+# Widest band whose rows the CUDA kernel keeps in registers; wider bands
+# get a second kernel with a device scratch buffer for the rows.
+MAX_REG_WIDTH = 1 << 14
+# K1's CUDA designs (csrc/wavefront.cu) -> (code, the band widths each
+# serves): "auto" picks the default for the width, "warp" is one warp per
+# pair, "blocked" several warps per pair with temporal blocking, and
+# "blocked_dpx" the latter with Hopper's DPX max instruction in the cell.
+DESIGNS = {
+    "auto": (0, 2, 1 << 40),
+    "warp": (1, 32, 1024),
+    "blocked": (2, 256, MAX_REG_WIDTH),
+    "blocked_dpx": (3, 512, 512),
+}
 
 
 def _check_pairs(a, b, a_len, b_len, steps: int, width: int) -> int:
@@ -142,6 +151,29 @@ def wavefront_dp_plain(
     return torch.stack(words)
 
 
+def pad_geometry(steps: int, width: int) -> tuple[int, int]:
+    """(front, stride) of the padded rows K1's register kernel reads: it
+    reads a from index -W/4 to steps/2 + W/4 + 7 and b from -W/4 - 1 to
+    steps/2 + W/4 + 6 (its 16-step windows and the prefetch of the next
+    one), so these bounds leave a margin on both sides."""
+    front = width // 4 + 16
+    return front, front + steps // 2 + width // 4 + 16
+
+
+def pad_rows(
+    seq: torch.Tensor, n_len: torch.Tensor, pad: int, front: int, stride: int
+) -> torch.Tensor:
+    """int8 [batch, L] rows -> int8 [batch, stride] rows holding each
+    sequence at [front, front + n_len) and `pad` everywhere else, so that
+    the kernel reads the reference's characters without a bounds check."""
+    batch = seq.shape[0]
+    out = torch.full((batch, stride), pad, dtype=torch.int8, device=seq.device)
+    k = min(seq.shape[1], stride - front)
+    keep = torch.arange(k, device=seq.device) < n_len[:, None]
+    out[:, front : front + k] = torch.where(keep, seq[:, :k], pad)
+    return out
+
+
 def wavefront_dp(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -153,13 +185,18 @@ def wavefront_dp(
     match: int = 2,
     mismatch: int = -3,
     gap: int = -4,
+    design: str = "auto",
 ) -> torch.Tensor:
     """K1: packed anti-diagonal direction codes, int32 [steps/16, batch, W].
 
     a, b: int8 [batch, La], [batch, Lb] code rows (contents past each
-    pair's length are not read); a_len, b_len: int32 [batch].
+    pair's length are not read; lengths must not exceed the rows);
+    a_len, b_len: int32 [batch].  `design` picks the CUDA kernel's layout
+    (`DESIGNS`); every design gives the same buffer.
     """
     batch = _check_pairs(a, b, a_len, b_len, steps, width)
+    if design not in DESIGNS or not DESIGNS[design][1] <= width <= DESIGNS[design][2]:
+        raise ValueError(f"design {design!r} does not serve width {width}")
     if a.device.type == "cpu":
         return wavefront_dp_plain(
             a, b, a_len, b_len, steps=steps, width=width,
@@ -169,23 +206,32 @@ def wavefront_dp(
         raise ValueError(f"unsupported device {a.device}")
     from paramugsy_tpu_torch.ops import _kernels
 
-    a = a.contiguous()
-    b = b.contiguous()
     a_len = a_len.contiguous()
     b_len = b_len.contiguous()
     dirs = torch.empty((steps // 16, batch, width), dtype=torch.int32, device=a.device)
     if batch == 0:
         return dirs
-    scratch = None
-    if width > MAX_SMEM_WIDTH:
-        scratch = torch.empty((batch, 2, width), dtype=torch.int32, device=a.device)
+    lib = _kernels.library()
     with torch.cuda.device(a.device):
-        rc = _kernels.library().pm_wavefront_dp(
-            _ptr(a), _ptr(b), _ptr(a_len), _ptr(b_len),
-            a.shape[1], b.shape[1], steps, width, batch,
-            match, mismatch, gap, _ptr(dirs),
-            None if scratch is None else _ptr(scratch), _launch_stream(a.device),
-        )
+        if width > MAX_REG_WIDTH:
+            a = a.contiguous()
+            b = b.contiguous()
+            scratch = torch.empty((batch, 2, width), dtype=torch.int32, device=a.device)
+            rc = lib.pm_wavefront_dp_wide(
+                _ptr(a), _ptr(b), _ptr(a_len), _ptr(b_len),
+                a.shape[1], b.shape[1], steps, width, batch,
+                match, mismatch, gap, _ptr(dirs), _ptr(scratch),
+                _launch_stream(a.device),
+            )
+        else:
+            front, stride = pad_geometry(steps, width)
+            ap = pad_rows(a, a_len, PAD_A, front, stride)
+            bp = pad_rows(b, b_len, PAD_B, front, stride)
+            rc = lib.pm_wavefront_dp(
+                _ptr(ap), _ptr(bp), stride, front, steps, width, batch,
+                match, mismatch, gap, DESIGNS[design][0], _ptr(dirs),
+                _launch_stream(a.device),
+            )
     if rc != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error {rc}")
     wavefront_dp.launches += 1

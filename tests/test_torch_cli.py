@@ -1,6 +1,8 @@
 """The port's nucmer CLI against the reference's, and the port's import
-boundary: no module of paramugsy_tpu_torch brings in JAX, neither on
-import nor while running ``nucmer`` and ``align -sequential -refine``."""
+boundary: no module of paramugsy_tpu_torch imports JAX or the JAX package
+(paramugsy_tpu), neither on import nor while running ``nucmer`` and
+``align -sequential -refine``, and no import statement in its sources
+names them."""
 import io
 import os
 import subprocess
@@ -75,22 +77,40 @@ def test_smoke_inputs_and_delta_helpers_match_reference():
     assert chip_smoke.aligned_bp(text) == sum(e.alignment_length() for e in entries)
 
 
-def test_smoke_imports_only_the_port():
-    """chip_smoke.py imports nothing of JAX, of the JAX package or of its
-    bench script, directly: only the port and the standard library."""
+def _imported_tops(path: str) -> set:
+    """Top-level names of every import statement in a source file, those
+    inside functions included (relative imports count as the port)."""
     import ast
 
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
-        tree = ast.parse(f.read())
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
-            names.add(node.module)
-    tops = {n.split(".")[0] for n in names}
+            names.add("paramugsy_tpu_torch" if node.level else node.module)
+    return {n.split(".")[0] for n in names}
+
+
+def test_smoke_imports_only_the_port():
+    """chip_smoke.py imports nothing of JAX, of the JAX package or of its
+    bench script, directly: only the port and the standard library."""
+    tops = _imported_tops(os.path.join(ROOT, "chip_smoke.py"))
     assert "paramugsy_tpu_torch" in tops
     assert not tops & {"jax", "jaxlib", "paramugsy_tpu", "bench"}, tops
+
+
+def test_port_sources_import_neither_jax_nor_the_reference():
+    """No import statement anywhere in paramugsy_tpu_torch/, at module
+    level or inside a function, names jax, jaxlib or paramugsy_tpu."""
+    sources = []
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "paramugsy_tpu_torch")):
+        sources += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    assert len(sources) >= 35
+    for path in sources:
+        bad = _imported_tops(path) & {"jax", "jaxlib", "paramugsy_tpu"}
+        assert not bad, (os.path.relpath(path, ROOT), bad)
 
 
 def test_cli_unknown_subcommand_returns_2():
@@ -101,12 +121,17 @@ def test_cli_unknown_subcommand_returns_2():
 _NO_JAX = r"""
 import importlib, pkgutil, runpy, sys
 args = sys.argv[1:]
+
+def reference_modules():
+    return sorted(m for m in sys.modules if m == "paramugsy_tpu" or m.startswith("paramugsy_tpu."))
+
 import paramugsy_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     paramugsy_tpu_torch.__path__, "paramugsy_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 assert "jax" not in sys.modules, "importing the port pulled in jax"
+assert not reference_modules(), reference_modules()
 import torch
 from paramugsy_tpu_torch.utils.platform import resolve_device
 assert resolve_device("cpu").type == "cpu"
@@ -124,6 +149,7 @@ try:
 except SystemExit as e:
     assert e.code == 0, e.code
 assert "jax" not in sys.modules, "the nucmer CLI pulled in jax"
+assert not reference_modules(), ("nucmer", reference_modules())
 # The multi-genome path with refinement and bridging: count the fused
 # neighbours (bridge_adjacent) and the long refine segments.
 import paramugsy_tpu_torch.lcb.merge as merge
@@ -138,6 +164,7 @@ try:
 except SystemExit as e:
     assert e.code == 0, e.code
 assert "jax" not in sys.modules, "align -sequential -refine pulled in jax"
+assert not reference_modules(), ("align", reference_modules())
 assert fused and engines.COUNTS.get("native-banded"), (len(fused), engines.COUNTS)
 print(len(names), "modules")
 """

@@ -147,13 +147,13 @@ def test_align_many_default_shape_equals_native():
 
 def test_band_wider_than_shared_memory_equals_native():
     """W = 32768, the band a length difference of 8192 bp or more doubles
-    to, is past the widest band whose rows fit the CUDA kernel's shared
-    memory.  The plain versions at that width equal the native banded
+    to, is past the widest band whose rows the CUDA register kernel holds
+    (the second kernel keeps them in device memory).  The plain versions at that width equal the native banded
     engine at the same width (on short pairs, so the test stays quick)."""
     if native.load() is None:
         pytest.skip("native library unavailable")
     width = 32768
-    assert width > port_wf.MAX_SMEM_WIDTH
+    assert width > port_wf.MAX_REG_WIDTH
     pairs = _pairs(32, (200, 90, 160), n_del=40, sub_rate=0.03)
     pairs.append((pairs[1][1], pairs[1][0]))
     tb = _dp_tb(pairs, 384, width).numpy()
@@ -177,3 +177,122 @@ def test_wrappers_reject_bad_inputs():
     dirs = port_wf.wavefront_dp(A, B, al, bl, steps=32, width=256)
     out = port_wf.wavefront_traceback(dirs, al, bl + 100, width=256)
     assert out[:, 0].tolist() == [-1, -1] and not out[:, 1:].any()
+
+
+def _emulate_register_kernel(pairs, *, steps, width, lanes_per_thread, strip, seed=0):
+    """A NumPy model of the schedule of csrc/wavefront.cu's
+    `wavefront_reg_kernel`: per warp its lanes (owned strip plus halo, the
+    range clamped into the band), each thread's 16-step windows of sequence
+    bytes read from the padded rows at the kernel's offsets, and the swap
+    of owned lanes every 32 steps.  The interior ends of each warp's lanes
+    see random garbage where the kernel sees its own shuffled values: no
+    owned lane may depend on them.  Returns the dirs buffer."""
+    rng = np.random.default_rng(seed)
+    L = lanes_per_thread
+    A, B, al, bl = port_wf.pack_pairs(pairs, CPU)
+    front, stride = port_wf.pad_geometry(steps, width)
+    ap = port_wf.pad_rows(A, al, port_wf.PAD_A, front, stride).numpy().astype(np.int64)
+    bp = port_wf.pad_rows(B, bl, port_wf.PAD_B, front, stride).numpy().astype(np.int64)
+    half, n_win, neg, gap = width // 2, 8 + L // 2, port_wf.NEG, -4
+    blocked = strip != width
+    ext = 32 * L if blocked else width
+    dirs = np.zeros((steps // 16, len(pairs), width), np.int64)
+    for p in range(len(pairs)):
+        warps = []
+        for k in range(width // strip):
+            e0 = min(max(k * strip - (ext - strip) // 2, 0), width - ext)
+            lanes = e0 + np.arange(ext)
+            w0 = e0 + (lanes - e0) // L * L
+            warps.append({
+                "lanes": lanes, "l": lanes - w0, "w0": w0,
+                "own": (lanes >= k * strip) & (lanes < (k + 1) * strip),
+                "g": np.where(lanes == half, 0, neg) + gap,
+                "g2": np.full(ext, neg + gap),
+            })
+        for d0 in range(0, steps, 16):
+            for wp in warps:
+                lanes, l, g, g2 = wp["lanes"], wp["l"], wp["g"], wp["g2"]
+                a0 = front + (d0 - wp["w0"] + half) // 2 - L // 2
+                b0 = front + (d0 + wp["w0"] - half) // 2 - 1
+                # This block's window and the next one (the prefetch) stay
+                # inside the padded rows.
+                assert a0.min() >= 0 and b0.min() >= 0
+                assert a0.max() + 8 + n_win <= stride and b0.max() + 8 + n_win <= stride
+                acc = np.zeros(ext, np.int64)
+                for s in range(1, 17):
+                    ja = (s - l) // 2 + L // 2 - 1
+                    jb = (s + l) // 2
+                    assert 0 <= ja.min() and ja.max() < n_win
+                    assert 0 <= jb.min() and jb.max() < n_win
+                    junk = rng.integers(-(10**6), 10**6, 2)
+                    up = np.append(g[1:], neg if lanes[-1] == width - 1 else junk[0])
+                    left = np.insert(g[:-1], 0, neg if lanes[0] == 0 else junk[1])
+                    same = ap[p, a0 + ja] == bp[p, b0 + jb]
+                    diag = g2 + np.where(same, 2 - gap, -3 - gap)
+                    m1 = np.maximum(up, left)
+                    dp = np.maximum(diag, m1)
+                    code = np.where(diag >= m1, port_wf.DIAG,
+                                    np.where(up >= left, port_wf.UP, port_wf.LEFT))
+                    acc |= code << (2 * (s - 1))
+                    g2, g = g, dp + gap
+                wp["g"], wp["g2"] = g, g2
+                dirs[d0 // 16, p, lanes[wp["own"]]] = acc[wp["own"]]
+            if blocked and d0 & 16:
+                rows = np.zeros((2, width), np.int64)
+                for wp in warps:
+                    rows[:, wp["lanes"][wp["own"]]] = (wp["g"][wp["own"]], wp["g2"][wp["own"]])
+                for wp in warps:
+                    halo = ~wp["own"]
+                    wp["g"][halo], wp["g2"][halo] = rows[:, wp["lanes"][halo]]
+    return dirs.astype(np.uint32).view(np.int32)
+
+
+# (width, lanes per thread, strip) of every launch csrc/wavefront.cu's
+# `pm_wavefront_dp` makes: design 1 (strip = width) and design 2.
+_REG_GEOMETRIES = [
+    (32, 2, 32), (64, 2, 64), (128, 4, 128), (256, 8, 256), (512, 16, 512),
+    (1024, 32, 1024), (256, 6, 128), (512, 6, 128), (2048, 6, 128),
+    (8192, 10, 256), (16384, 18, 512),
+]
+
+
+@pytest.mark.parametrize("width,lanes_per_thread,strip", _REG_GEOMETRIES)
+def test_k1_register_schedule_equals_plain(width, lanes_per_thread, strip):
+    """The CUDA kernel's schedule (lane ownership, halos, padded windows)
+    reproduces the plain version's whole buffer: a CPU rehearsal of the
+    index arithmetic the card runs."""
+    steps = 128 if width <= 1024 else 64
+    pairs = _small_batch()[1:5] if width <= 1024 else _pairs(3, (40, 70), n_del=5)
+    A, B, al, bl = port_wf.pack_pairs(pairs, CPU)
+    want = port_wf.wavefront_dp_plain(A, B, al, bl, steps=steps, width=width).numpy()
+    got = _emulate_register_kernel(
+        pairs, steps=steps, width=width, lanes_per_thread=lanes_per_thread, strip=strip
+    )
+    np.testing.assert_array_equal(got, want)
+
+
+def test_k1_padded_rows_hold_the_reference_characters():
+    """`pad_rows` puts each sequence at [front, front + n) and the pad code
+    (4 for a, 5 for b) everywhere else, also past a pair's length inside
+    its row."""
+    pairs = _small_batch()
+    A, B, al, bl = port_wf.pack_pairs(pairs, CPU)
+    B[:, :] = 3  # contents past each length must not survive
+    B[:, : bl.max()] = port_wf.pack_pairs(pairs, CPU)[1]
+    front, stride = port_wf.pad_geometry(64, 256)
+    got = port_wf.pad_rows(B, bl, port_wf.PAD_B, front, stride).numpy()
+    for p, (_, b) in enumerate(pairs):
+        want = np.full(stride, port_wf.PAD_B, np.int8)
+        n = min(len(b), stride - front)
+        want[front : front + n] = b[:n]
+        np.testing.assert_array_equal(got[p], want)
+
+
+def test_k1_design_must_serve_the_width():
+    A, B, al, bl = port_wf.pack_pairs(_pairs(1, (10, 12)), CPU)
+    for design, width in (("warp", 2048), ("blocked", 128), ("blocked", 32768), ("fast", 512)):
+        with pytest.raises(ValueError):
+            port_wf.wavefront_dp(A, B, al, bl, steps=64, width=width, design=design)
+    for design in port_wf.DESIGNS:
+        got = port_wf.wavefront_dp(A, B, al, bl, steps=64, width=512, design=design)
+        assert got.shape == (4, 2, 512)
