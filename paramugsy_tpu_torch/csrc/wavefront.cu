@@ -53,8 +53,15 @@
 //    their owned lanes' two rows through shared memory (two
 //    __syncthreads()).  At W 512: four warps of 192 lanes (L = 6), one per
 //    scheduler, 1.5x the cells of design 1 on 4x its issue slots.
-// `pm_wavefront_dp` with design 0 takes the faster of the two at each
-// width (see PERF.md for the measurements).
+// `pm_wavefront_dp` with design 0 takes design 2 from 256 lanes up, the
+// faster of the two (PERF.md).  What bounds design 2 at W 512: its loop
+// compiles to ~13.9 SASS instructions per cell (two VIMNMX, three ISETP,
+// three SEL, the adds), 6 cells per thread, one warp per scheduler: ~83
+// warp instructions a step, mostly on the 16-lane integer pipe (2 cycles
+// each), against ~136 cycles measured per step (0.069 us on an H100 SXM
+// at 700 W).  So it is issue-bound; the one-SM bound of 512 lanes x 7
+// operations is 41% of that time, the rest being the halo (768 cells for
+// 512 lanes) and instructions above the ~9 a cell needs.
 //
 // Bands wider than 16384 lanes (a length difference of 8192 bp or more
 // inside one segment) take `wavefront_kernel_wide`, which keeps both rows

@@ -21,7 +21,9 @@ for a and 5 for b never match; rows start at NEG), and both versions
 compute every lane exactly like the reference, so whole buffers are
 bit-identical.  The reference's rolled character windows equal direct
 reads a[floor((d - w + W/2) / 2) - 1] and b[floor((d + w - W/2) / 2) - 1]
-(pad outside the sequence), which both versions use.
+(pad outside the sequence), which both versions use; K1's CUDA kernel
+reads them from copies of the rows padded on both sides (`pad_rows`), so
+it needs no bounds check.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel or raises.  Each wrapper counts its launches in
@@ -43,9 +45,11 @@ PAD_A, PAD_B = 4, 5
 # get a second kernel with a device scratch buffer for the rows.
 MAX_REG_WIDTH = 1 << 14
 # K1's CUDA designs (csrc/wavefront.cu) -> (code, the band widths each
-# serves): "auto" picks the default for the width, "warp" is one warp per
-# pair, "blocked" several warps per pair with temporal blocking, and
-# "blocked_dpx" the latter with Hopper's DPX max instruction in the cell.
+# serves): "auto" picks the default for the width ("blocked" from 256
+# lanes, else "warp"), "warp" is one warp per pair, "blocked" several warps
+# per pair with temporal blocking, and "blocked_dpx" the latter with
+# Hopper's DPX max-with-predicate in the cell.  The non-default designs
+# exist so that chip_smoke.py can time them against the default.
 DESIGNS = {
     "auto": (0, 2, 1 << 40),
     "warp": (1, 32, 1024),
