@@ -17,14 +17,13 @@ result line:
    doubling reaches, W = 1024 ... 32768 (past 16384 the rows leave
    registers for device memory).  Buffers must be bit-identical; every
    pair must equal the native banded engine.
-2a. K1's two CUDA designs (one warp per pair; several warps with temporal
-   blocking) against the plain version: a short launch at every width
-   each serves, then the batch-1 refine shapes: one pair of the median
-   refine segment (11.75 kb a side, W = 512) bit-identical to the plain
-   version, and one of the longest (46 kb a side, ~92 k steps) equal to
-   the native banded engine through K1 + K2.  Both are timed per design
-   with CUDA events, in microseconds per anti-diagonal step, and so is
-   the bench shape.
+2a. K1 against its plain version: a short launch at every width of its
+   register kernel (32 ... 16384), then the batch-1 refine shapes: one
+   pair of the median refine segment (11.75 kb a side, W = 512)
+   bit-identical to the plain version, and one of the longest (46 kb a
+   side, ~92 k steps) equal to the native banded engine through K1 + K2.
+   Both are timed with CUDA events, in microseconds per anti-diagonal
+   step.
 2b. K3 (``banded_dp``, one pair) and K4 (``banded_dp_batch``) against
    ``banded_dp_plain``: one ~8 kb pair at W = 512 and eight pairs of
    2-8 kb at W = 64, 256, 512, 1024, 4096 and 32768 (the widest band
@@ -61,11 +60,19 @@ Neither prints the result line.
 Each kernel's ``bound_ms`` in the ``kernels`` line is the larger of its
 bytes (inputs read once, output written once; for K2 only the path's
 words that this run's walks read) over 3.35 TB/s and its integer
-operations over the card's int32 rate: 132 SMs x 64 int32 lanes x 1.98
-GHz = 16.7 T op/s (a quarter of the data sheet's 67 TFLOP/s float32,
-which counts 128 lanes x 2 operations per SM and clock).  A DP cell
-counts 7 operations (character compare, score select, diag add, gap add,
-two maxima, code update).
+operations over the card's 32-bit integer rate: 132 SMs x 128 lanes x
+1.98 GHz = 33.5 T op/s.  Per SM and clock Hopper issues 64 lanes of
+integer add, compare, select, min/max and logic on its ALU pipe and 64
+more of IMAD on its FMA pipe, which the compiler also uses for integer
+adds and moves (K1's SASS mix, ``--k1``, counts both), so 128 lanes is
+the ceiling of a mixed integer stream: half the data sheet's 67 TFLOP/s
+float32, which counts an FMA as two operations.  A DP cell counts 7
+operations: character compare, score select, diag add, max(up, left),
+max(diag, that), gap add, code update (one or of the 2-bit code that
+the two maxima's a >= b predicates select).  DPX's ``__vibmax_s32``
+gives a max and its predicate in one instruction, as counted;
+``__viaddmax_s32`` would fuse the diag add into a max but gives no
+predicate, which the code needs, so the count stays 7.
 """
 from __future__ import annotations
 
@@ -117,7 +124,7 @@ REALISTIC_LONG_SEGMENTS = 151  # the reference's native-banded segments per run
 BANDED_WIDTHS = (64, 256, 512, 1024, 4096, 32768)
 
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 OPS_PER_CELL = 7
 # Refine segments of the realistic fixture reach K1 at batch 1, W 512:
 # a sides of 5.0-46.0 kb, median 11.7 kb (anti-diagonal steps 9.9-92.0 k,
@@ -324,74 +331,51 @@ def _steps_of(pairs) -> int:
     return -(-max(len(a) + len(b) for a, b in pairs) // 128) * 128
 
 
-def check_k1_designs(device, bench_pairs) -> dict:
-    """K1's CUDA designs against the plain version: a short launch of two
-    pairs at every width each design serves, then the batch-1 refine
-    shapes and the bench shape, timed per design (CUDA events).  The
-    median refine pair's buffer must be bit-identical to the plain
-    version's for every design; the longest refine pair (plain would take
-    ~30 s) must give the native banded engine's alignment through K1 + K2;
-    at the bench shape every design must give the default's buffer (which
-    phase 2 held against the plain version)."""
+def check_k1_batch1(device) -> dict:
+    """K1 against its plain version on a short launch of two pairs at every
+    width of the register kernel, then the batch-1 refine shapes, timed
+    with CUDA events: the median refine pair's buffer must be bit-identical
+    to the plain version's; the longest refine pair (plain would take ~30
+    s) must give the native banded engine's alignment through K1 + K2."""
     import torch
 
     from paramugsy_tpu_torch.ops import wavefront as wf
     from paramugsy_tpu_torch.ops.extend import align_long_segment
 
     rng = np.random.default_rng(11)
-    served = {
-        d: [w for w in (32 << k for k in range(10)) if lo <= w <= hi]
-        for d, (_, lo, hi) in wf.DESIGNS.items() if d != "auto"
-    }
-    for width in (32 << k for k in range(10)):
+    widths = [32 << k for k in range(10)]
+    for width in widths:
         pairs = kernel_pairs(rng, 2, 600, min(width // 4 - 1, 300))
         A, B, al, bl = wf.pack_pairs(pairs, device)
         kw = dict(steps=_steps_of(pairs), width=width)
-        want = wf.wavefront_dp_plain(A, B, al, bl, **kw)
-        for design in ("auto", *(d for d, ws in served.items() if width in ws)):
-            if not torch.equal(wf.wavefront_dp(A, B, al, bl, design=design, **kw), want):
-                raise AssertionError(f"K1 {design} differs from plain at W={width}")
-    row = {"widths_checked": [32 << k for k in range(10)], "designs": {}}
+        if not torch.equal(wf.wavefront_dp(A, B, al, bl, **kw), wf.wavefront_dp_plain(A, B, al, bl, **kw)):
+            raise AssertionError(f"K1 differs from plain at W={width}")
+    row = {"widths_checked": widths}
 
     median = kernel_pairs(rng, 1, REFINE_MEDIAN_BP, 40)
     longest = kernel_pairs(rng, 1, REFINE_LONGEST_BP, 40)
-    shapes = {"median": median, "longest": longest, "bench": bench_pairs}
-    packed = {k: wf.pack_pairs(v, device) for k, v in shapes.items()}
-    steps = {k: _steps_of(v) for k, v in shapes.items()}
-    A, B, al, bl = packed["median"]
-    want_median, plain_ms = _once_ms(
-        lambda: wf.wavefront_dp_plain(A, B, al, bl, steps=steps["median"], width=512)
-    )
-    A, B, al, bl = packed["bench"]
-    want_bench = wf.wavefront_dp(A, B, al, bl, steps=steps["bench"], width=512)
-    for design in ("auto", *(d for d, ws in served.items() if 512 in ws)):
-        out = {}
-        for shape, (A, B, al, bl) in packed.items():
-            kw = dict(steps=steps[shape], width=512, design=design)
-            dirs = wf.wavefront_dp(A, B, al, bl, **kw)
-            if shape == "median" and not torch.equal(dirs, want_median):
-                raise AssertionError(f"K1 {design} differs from plain at the median refine pair")
-            if shape == "bench" and not torch.equal(dirs, want_bench):
-                raise AssertionError(f"K1 {design} differs from the default at the bench shape")
-            if shape == "longest":
-                tb = wf.wavefront_traceback(dirs, al, bl, width=512).cpu().numpy()
-                a, b = longest[0]
-                if wf._runs_of_path_words(tb[0, 1:], int(tb[0, 0])) != align_long_segment(a, b):
-                    raise AssertionError(f"K1 {design}: longest refine pair differs from native")
-            ms = _cuda_ms(lambda: wf.wavefront_dp(A, B, al, bl, **kw), 5 if shape == "bench" else 20)
-            out[shape] = {"ms": ms, "us_per_step": ms * 1e3 / steps[shape]}
-        row["designs"][design] = out
-    row["median"] = {
-        "steps": steps["median"], "plain_ms": plain_ms,
-        "bound": bound(
-            2 * REFINE_MEDIAN_BP + 8 + 4 * want_median.numel(),
-            OPS_PER_CELL * want_median.numel() * 16,
-        ),
-        # One pair can use one SM: 1/132 of the card's int32 rate.
-        "one_sm_bound_ms": OPS_PER_CELL * want_median.numel() * 16 / (INT32_OPS_PER_S / 132) * 1e3,
-    }
-    row["longest_steps"] = steps["longest"]
-    print("k1_designs", json.dumps(row), flush=True)
+    for shape, pairs in (("median", median), ("longest", longest)):
+        A, B, al, bl = wf.pack_pairs(pairs, device)
+        kw = dict(steps=_steps_of(pairs), width=512)
+        dirs = wf.wavefront_dp(A, B, al, bl, **kw)
+        out = {"steps": kw["steps"]}
+        if shape == "median":
+            want, out["plain_ms"] = _once_ms(lambda: wf.wavefront_dp_plain(A, B, al, bl, **kw))
+            if not torch.equal(dirs, want):
+                raise AssertionError("K1 differs from plain at the median refine pair")
+            cell_ops = OPS_PER_CELL * dirs.numel() * 16
+            out["bound"] = bound(2 * REFINE_MEDIAN_BP + 8 + 4 * dirs.numel(), cell_ops)
+            # One pair can use one SM: 1/132 of the card's integer rate.
+            out["one_sm_bound_us_per_step"] = cell_ops / (INT32_OPS_PER_S / 132) * 1e6 / kw["steps"]
+        else:
+            tb = wf.wavefront_traceback(dirs, al, bl, width=512).cpu().numpy()
+            a, b = pairs[0]
+            if wf._runs_of_path_words(tb[0, 1:], int(tb[0, 0])) != align_long_segment(a, b):
+                raise AssertionError("K1: longest refine pair differs from native")
+        out["ms"] = _cuda_ms(lambda: wf.wavefront_dp(A, B, al, bl, **kw), 20)
+        out["us_per_step"] = out["ms"] * 1e3 / kw["steps"]
+        row[shape] = out
+    print("k1_batch1", json.dumps(row), flush=True)
     return row
 
 
@@ -735,11 +719,11 @@ def profile_realistic(device) -> dict:
     return row
 
 
-def print_sass_mix(kernels: dict) -> None:
-    """Per named K1 instantiation (mangled-name fragment -> lanes per
-    thread), the SASS instructions of the built library per DP cell of one
-    16-step block (all of the kernel's instructions over 16 * L), and the
-    commonest opcodes: what the issue-rate bound counts."""
+def print_sass_mix() -> None:
+    """Per instantiation of K1's register kernel, the SASS instructions of
+    the built library per DP cell of one 16-step block (all of the
+    kernel's instructions over 16 * L lanes-steps) and the commonest
+    opcodes: what the source note's issue-rate estimate counts."""
     import collections
     import re
 
@@ -751,31 +735,14 @@ def print_sass_mix(kernels: dict) -> None:
     ).stdout
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0]
-        for frag, lanes in kernels.items():
-            if frag in name:
-                ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", chunk)
-                mix = collections.Counter(o.split(".")[0] for o in ops).most_common(14)
-                print("sass", frag, json.dumps({
-                    "instructions": len(ops), "per_cell": len(ops) / (16 * lanes), "top": mix,
-                }), flush=True)
-
-
-def print_declaration(name: str) -> None:
-    """Print the CUDA toolkit header lines that document `name` (the tie
-    semantics of a DPX intrinsic's predicate)."""
-    from paramugsy_tpu_torch.ops import _kernels
-
-    include = os.path.join(os.path.dirname(os.path.dirname(_kernels._nvcc())), "include")
-    for dirpath, _, files in os.walk(include):
-        for fname in sorted(files):
-            path = os.path.join(dirpath, fname)
-            with open(path, errors="replace") as f:
-                lines = f.readlines()
-            for i, line in enumerate(lines):
-                if name + "(" in line and "__DEVICE" in line.upper() + lines[i - 1].upper():
-                    print(f"{path}:{i + 1}:", "".join(lines[max(0, i - 14) : i + 2]), flush=True)
-                    return
-    print(f"{name}: no declaration found under {include}", flush=True)
+        found = re.search(r"wavefront_reg_kernelILi(\d+)ELi(\d+)E", name)
+        if found:
+            lanes = int(found.group(1))
+            ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", chunk)
+            mix = collections.Counter(o.split(".")[0] for o in ops).most_common(14)
+            print("sass", f"L={lanes} threads<={found.group(2)}", json.dumps({
+                "instructions": len(ops), "per_cell": len(ops) / (16 * lanes), "top": mix,
+            }), flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -807,16 +774,9 @@ def main(argv: list[str]) -> int:
     build_native()
     print(f"native build: {time.perf_counter() - t0:.3f} s", flush=True)
 
-    rng = np.random.default_rng(99)
-    bench_pairs = kernel_pairs(rng, 64, 16384, 20)
     if argv == ["--k1"]:
-        print_declaration("__vibmax_s32")
-        print_sass_mix({
-            "reg_kernelILi6ELi128ELb1ELb0E": 6,
-            "reg_kernelILi6ELi128ELb1ELb1E": 6,
-            "reg_kernelILi16ELi32ELb1ELb0E": 16,
-        })
-        check_k1_designs(device, bench_pairs)
+        print_sass_mix()
+        check_k1_batch1(device)
         return 0
     if argv == ["--profile"]:
         profile_realistic(device)
@@ -826,7 +786,8 @@ def main(argv: list[str]) -> int:
 
     # Phase 2: kernels against their plain versions, at the bench shape
     # and at every band width up to one past the register kernel's.
-    bench_shape = check_kernels(bench_pairs, device, reps=5)
+    rng = np.random.default_rng(99)
+    bench_shape = check_kernels(kernel_pairs(rng, 64, 16384, 20), device, reps=5)
     wide = [
         check_kernels(kernel_pairs(rng, n_pairs, length, n_del), device, reps=3)
         for n_pairs, length, n_del in (
@@ -839,8 +800,8 @@ def main(argv: list[str]) -> int:
     if widths != [512, 1024, 2048, 4096, 8192, 16384, 32768]:
         raise AssertionError(f"kernel checks reached widths {widths}")
 
-    # Phase 2a: K1's designs, and the batch-1 refine shapes.
-    k1_designs = check_k1_designs(device, bench_pairs)
+    # Phase 2a: K1 at every register width, and the batch-1 refine shapes.
+    k1_batch1 = check_k1_batch1(device)
 
     # Phase 2b: K3/K4 against their plain version, then their path.
     banded = check_banded(device, reps=3)
@@ -889,7 +850,7 @@ def main(argv: list[str]) -> int:
             "bound_ms": bench_shape["k1_bound_ms"],
             "bound_by": bench_shape["k1_bound_by"],
             "library_ms": None,
-            "us_per_step_batch1": k1_designs["designs"]["auto"]["median"]["us_per_step"],
+            "us_per_step_batch1": k1_batch1["median"]["us_per_step"],
         },
         {
             "name": "wavefront_traceback",

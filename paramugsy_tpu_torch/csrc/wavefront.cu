@@ -15,9 +15,10 @@
 // What bounds it on the card.  The anti-diagonals of one pair are
 // strictly sequential, and refinement sends its long segments one at a
 // time, so a launch is often one pair on one SM.  The work of a step is
-// W cells of a handful of integer operations: at W = 512 and ~7 operations
-// per cell, 3.6 k lane-operations, 56 cycles of one SM's 64 INT32 lanes
-// per clock.  The memory traffic (one int32 word per lane per 16 steps)
+// W cells of a handful of integer operations: at W = 512 and 7 operations
+// per cell, 3.6 k lane-operations, 28 cycles of one SM's 128 integer lanes
+// per clock (64 on the ALU pipe, 64 more for the adds the FMA pipe takes
+// as IMAD).  The memory traffic (one int32 word per lane per 16 steps)
 // is far below the card's rate.  So the time per step is the SM's issue
 // rate plus whatever latency each step exposes.  The first kernel (one
 // lane per thread, rows in shared memory, one __syncthreads() and two
@@ -37,31 +38,32 @@
 //    block ahead where registers allow).  The wrapper pads both sequences
 //    on both sides, so no load needs a bounds check;
 //  * the cell is two maxima, each with its (a >= b) predicate, which give
-//    the code in the reference's tie order.  Hopper's DPX intrinsic
-//    __vibmax_s32 computes exactly that pair (its predicate is a >= b,
-//    crt/device_functions.h), but measured slower per step than plain
-//    max + compare on the card (PERF.md), so it stays as design 3, for
-//    comparison.
-// Two ways to give a pair more than one warp's issue slots:
-//  * design 1, one warp per pair (W <= 1024): no barrier at all, but a
-//    step costs L * ~7 instructions on one scheduler (L = 16 at W 512);
-//  * design 2, temporal blocking (W >= 256): the band is cut into strips
-//    of S lanes, one warp per strip, and each warp also computes 32 halo
+//    the code in the reference's tie order.  Plain max + compare compiles
+//    to two VIMNMX per cell; Hopper's DPX __vibmax_s32 (the same max and
+//    predicate, a >= b in crt/device_functions.h) compiled to more
+//    instructions and measured slower (PERF.md).
+// The layout depends only on the band width:
+//  * below 256 lanes, one warp per pair (L = W/32 or 2): no barrier at
+//    all.  The warp's halo scheme below needs 64 halo lanes, more than
+//    such a band has to spare;
+//  * from 256 lanes up, temporal blocking: the band is cut into strips of
+//    S lanes, one warp per strip, and each warp also computes 32 halo
 //    lanes on each side (the dependency cone widens by one lane per step,
 //    so 32 steps use them up).  Halo lanes compute the same values as
 //    their owners; only owned lanes store.  Every 32 steps the warps swap
 //    their owned lanes' two rows through shared memory (two
 //    __syncthreads()).  At W 512: four warps of 192 lanes (L = 6), one per
-//    scheduler, 1.5x the cells of design 1 on 4x its issue slots.
-// `pm_wavefront_dp` with design 0 takes design 2 from 256 lanes up, the
-// faster of the two (PERF.md).  What bounds design 2 at W 512: its loop
-// compiles to ~13.9 SASS instructions per cell (two VIMNMX, three ISETP,
-// three SEL, the adds), 6 cells per thread, one warp per scheduler: ~83
-// warp instructions a step, mostly on the 16-lane integer pipe (2 cycles
-// each), against ~136 cycles measured per step (0.069 us on an H100 SXM
-// at 700 W).  So it is issue-bound; the one-SM bound of 512 lanes x 7
-// operations is 41% of that time, the rest being the halo (768 cells for
-// 512 lanes) and instructions above the ~9 a cell needs.
+//    scheduler.  One warp per pair at W 512 (16 cells per thread on one
+//    scheduler) measured 3x slower (PERF.md).
+// What bounds it at W 512: its loop compiles to ~13.9 SASS instructions
+// per cell (two VIMNMX, three ISETP, three SEL, the adds), 6 cells per
+// thread, one warp per scheduler: ~83 warp instructions a step, mostly on
+// the 16-lane integer pipe (2 cycles each), against ~136 cycles measured
+// per step (0.069 us on an H100 SXM at 700 W).  So it is issue-bound.
+// The function's own 7 operations per cell on 512 lanes, over one SM's
+// 128 integer lanes per clock (ALU and FMA pipes together), take 21% of
+// that time; the halo (768 cells for 512 lanes) and the instructions
+// above 7 per cell are the gap.
 //
 // Bands wider than 16384 lanes (a length difference of 8192 bp or more
 // inside one segment) take `wavefront_kernel_wide`, which keeps both rows
@@ -113,10 +115,10 @@ __device__ __forceinline__ void load(const int8_t* ap, const int8_t* bp,
 
 // a, b: padded code rows, [batch][stride], the sequence at [front, ...),
 // pads everywhere else (the wrapper's `pad_rows`).  One block per pair;
-// blockDim.x = 32 * (W / strip) threads for design 2, W / L for design 1
-// (strip = W).  L even, so every thread's first lane w0 is even and the
+// blockDim.x = 32 * (W / strip) threads with temporal blocking, W / L for
+// one warp per pair (strip = W).  L even, so every thread's first lane w0 is even and the
 // windows below start at exact halves.
-template <int L, int MAXT, bool PREFETCH, bool DPX>
+template <int L, int MAXT, bool PREFETCH>
 __global__ void __launch_bounds__(MAXT) wavefront_reg_kernel(
     const int8_t* __restrict__ a, const int8_t* __restrict__ b, int stride,
     int front, int steps, int width, int strip, int batch, int match,
@@ -173,17 +175,10 @@ __global__ void __launch_bounds__(MAXT) wavefront_reg_kernel(
         const int left = l > 0 ? g[l - 1] : gl;
         const int diag =
             g2[l] + (ca[floor_half(s - l) + L / 2 - 1] == cb[floor_half(s + l)] ? mg : xg);
-        bool up_ge, diag_ge;
-        int m1, dp;
-        if constexpr (DPX) {
-          m1 = __vibmax_s32(up, left, &up_ge);
-          dp = __vibmax_s32(diag, m1, &diag_ge);
-        } else {
-          up_ge = up >= left;
-          m1 = max(up, left);
-          diag_ge = diag >= m1;
-          dp = max(diag, m1);
-        }
+        const bool up_ge = up >= left;
+        const int m1 = max(up, left);
+        const bool diag_ge = diag >= m1;
+        const int dp = max(diag, m1);
         if (!diag_ge) acc[l] |= (up_ge ? uint32_t{kUp} : uint32_t{kLeft}) << (2 * (s - 1));
         nd[l] = dp + gap;
       }
@@ -234,7 +229,7 @@ __global__ void __launch_bounds__(MAXT) wavefront_reg_kernel(
   }
 }
 
-template <int L, int MAXT, bool PREFETCH, bool DPX = false>
+template <int L, int MAXT, bool PREFETCH>
 cudaError_t launch(const int8_t* a, const int8_t* b, int stride, int front,
                    int steps, int width, int strip, int batch, int match,
                    int mismatch, int gap, int32_t* dirs, cudaStream_t stream) {
@@ -244,11 +239,11 @@ cudaError_t launch(const int8_t* a, const int8_t* b, int stride, int front,
   const size_t smem = threads > 32 ? 2 * static_cast<size_t>(width) * sizeof(int) : 0;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        wavefront_reg_kernel<L, MAXT, PREFETCH, DPX>,
+        wavefront_reg_kernel<L, MAXT, PREFETCH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  wavefront_reg_kernel<L, MAXT, PREFETCH, DPX><<<batch, threads, smem, stream>>>(
+  wavefront_reg_kernel<L, MAXT, PREFETCH><<<batch, threads, smem, stream>>>(
       a, b, stride, front, steps, width, strip, batch, match, mismatch, gap,
       dirs);
   return cudaGetLastError();
@@ -304,19 +299,15 @@ __global__ void __launch_bounds__(1024) wavefront_kernel_wide(
 // ...), pad 4 in a and 5 in b elsewhere); front >= W/4 + 8 and stride >=
 // front + steps/2 + W/4 + 16, so every read is inside the row.  dirs: int32
 // [steps/16, batch, width].  width is a power of two in [32, 16384];
-// steps a multiple of 16.  design: 0 = the default for the width, 1 = one
-// warp per pair (width <= 1024), 2 = temporal blocking (width >= 256),
-// 3 = design 2 with the DPX cell (width 512 only, for comparison).
-// Returns a cudaError_t.
+// steps a multiple of 16.  Returns a cudaError_t.
 extern "C" int pm_wavefront_dp(const void* a, const void* b, int stride,
                                int front, int steps, int width, int batch,
-                               int match, int mismatch, int gap, int design,
-                               void* dirs, void* stream) {
+                               int match, int mismatch, int gap, void* dirs,
+                               void* stream) {
   if (width < 32 || width > kMaxRegWidth || (width & (width - 1)) ||
       steps % 16 || batch <= 0 || front < width / 4 + 8 ||
       stride < front + steps / 2 + width / 4 + 16)
     return cudaErrorInvalidValue;
-  if (design == 0) design = width >= 256 ? 2 : 1;
   auto s = static_cast<cudaStream_t>(stream);
   auto pa = static_cast<const int8_t*>(a);
   auto pb = static_cast<const int8_t*>(b);
@@ -324,36 +315,23 @@ extern "C" int pm_wavefront_dp(const void* a, const void* b, int stride,
 #define PM_LAUNCH(L, MAXT, PF, STRIP)                                           \
   return launch<L, MAXT, PF>(pa, pb, stride, front, steps, width, STRIP,       \
                              batch, match, mismatch, gap, pd, s)
-  if (design == 1) {
-    switch (width) {
-      case 32: PM_LAUNCH(2, 32, true, width);
-      case 64: PM_LAUNCH(2, 32, true, width);
-      case 128: PM_LAUNCH(4, 32, true, width);
-      case 256: PM_LAUNCH(8, 32, true, width);
-      case 512: PM_LAUNCH(16, 32, true, width);
-      case 1024: PM_LAUNCH(32, 32, false, width);
-      default: return cudaErrorInvalidValue;
-    }
+  // (lanes per thread, threads at most, prefetch, strip): one warp per pair
+  // below 256 lanes (strip = width); from 256 up, strips of 128 lanes (192
+  // computed, L = 6) up to 32 warps, and wider strips past that.
+  switch (width) {
+    case 32: PM_LAUNCH(2, 32, true, 32);
+    case 64: PM_LAUNCH(2, 32, true, 64);
+    case 128: PM_LAUNCH(4, 32, true, 128);
+    case 256: PM_LAUNCH(6, 64, true, 128);
+    case 512: PM_LAUNCH(6, 128, true, 128);
+    case 1024: PM_LAUNCH(6, 256, true, 128);
+    case 2048: PM_LAUNCH(6, 512, true, 128);
+    case 4096: PM_LAUNCH(6, 1024, false, 128);
+    case 8192: PM_LAUNCH(10, 1024, false, 256);
+    case 16384: PM_LAUNCH(18, 1024, false, 512);
+    default: return cudaErrorInvalidValue;
   }
-  if (design == 2) {
-    // Strips of 128 lanes (192 computed, L = 6) up to 32 warps; wider
-    // bands widen the strips.
-    switch (width) {
-      case 256: PM_LAUNCH(6, 64, true, 128);
-      case 512: PM_LAUNCH(6, 128, true, 128);
-      case 1024: PM_LAUNCH(6, 256, true, 128);
-      case 2048: PM_LAUNCH(6, 512, true, 128);
-      case 4096: PM_LAUNCH(6, 1024, false, 128);
-      case 8192: PM_LAUNCH(10, 1024, false, 256);
-      case 16384: PM_LAUNCH(18, 1024, false, 512);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (design == 3 && width == 512)  // design 2 with the DPX cell
-    return launch<6, 128, true, true>(pa, pb, stride, front, steps, width,
-                                      128, batch, match, mismatch, gap, pd, s);
 #undef PM_LAUNCH
-  return cudaErrorInvalidValue;
 }
 
 // Bands wider than 16384 lanes.  a: int8 [batch, a_stride]; b: int8

@@ -104,7 +104,7 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.pm_wavefront_dp.restype = i
-            lib.pm_wavefront_dp.argtypes = [vp, vp] + [i] * 9 + [vp, vp]
+            lib.pm_wavefront_dp.argtypes = [vp, vp] + [i] * 8 + [vp, vp]
             lib.pm_wavefront_dp_wide.restype = i
             lib.pm_wavefront_dp_wide.argtypes = [vp, vp, vp, vp] + [i] * 8 + [vp, vp, vp]
             lib.pm_wavefront_traceback.restype = i

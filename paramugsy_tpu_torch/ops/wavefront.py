@@ -44,18 +44,6 @@ PAD_A, PAD_B = 4, 5
 # Widest band whose rows the CUDA kernel keeps in registers; wider bands
 # get a second kernel with a device scratch buffer for the rows.
 MAX_REG_WIDTH = 1 << 14
-# K1's CUDA designs (csrc/wavefront.cu) -> (code, the band widths each
-# serves): "auto" picks the default for the width ("blocked" from 256
-# lanes, else "warp"), "warp" is one warp per pair, "blocked" several warps
-# per pair with temporal blocking, and "blocked_dpx" the latter with
-# Hopper's DPX max-with-predicate in the cell.  The non-default designs
-# exist so that chip_smoke.py can time them against the default.
-DESIGNS = {
-    "auto": (0, 2, 1 << 40),
-    "warp": (1, 32, 1024),
-    "blocked": (2, 256, MAX_REG_WIDTH),
-    "blocked_dpx": (3, 512, 512),
-}
 
 
 def _check_pairs(a, b, a_len, b_len, steps: int, width: int) -> int:
@@ -169,7 +157,13 @@ def pad_rows(
 ) -> torch.Tensor:
     """int8 [batch, L] rows -> int8 [batch, stride] rows holding each
     sequence at [front, front + n_len) and `pad` everywhere else, so that
-    the kernel reads the reference's characters without a bounds check."""
+    the kernel reads the reference's characters without a bounds check.
+
+    The copy is made per launch, inside `wavefront_dp`, so that K1 keeps
+    the reference's interface (rows of any width, contents past each
+    length ignored), the one its plain version and the wide kernel take
+    too; it costs a few small device ops beside a launch of many thousand
+    sequential steps."""
     batch = seq.shape[0]
     out = torch.full((batch, stride), pad, dtype=torch.int8, device=seq.device)
     k = min(seq.shape[1], stride - front)
@@ -189,18 +183,15 @@ def wavefront_dp(
     match: int = 2,
     mismatch: int = -3,
     gap: int = -4,
-    design: str = "auto",
 ) -> torch.Tensor:
     """K1: packed anti-diagonal direction codes, int32 [steps/16, batch, W].
 
     a, b: int8 [batch, La], [batch, Lb] code rows (contents past each
     pair's length are not read; lengths must not exceed the rows);
-    a_len, b_len: int32 [batch].  `design` picks the CUDA kernel's layout
-    (`DESIGNS`); every design gives the same buffer.
+    a_len, b_len: int32 [batch].  The CUDA kernel picks its layout from
+    the width alone (csrc/wavefront.cu).
     """
     batch = _check_pairs(a, b, a_len, b_len, steps, width)
-    if design not in DESIGNS or not DESIGNS[design][1] <= width <= DESIGNS[design][2]:
-        raise ValueError(f"design {design!r} does not serve width {width}")
     if a.device.type == "cpu":
         return wavefront_dp_plain(
             a, b, a_len, b_len, steps=steps, width=width,
@@ -233,7 +224,7 @@ def wavefront_dp(
             bp = pad_rows(b, b_len, PAD_B, front, stride)
             rc = lib.pm_wavefront_dp(
                 _ptr(ap), _ptr(bp), stride, front, steps, width, batch,
-                match, mismatch, gap, DESIGNS[design][0], _ptr(dirs),
+                match, mismatch, gap, _ptr(dirs),
                 _launch_stream(a.device),
             )
     if rc != 0:

@@ -248,11 +248,12 @@ def _emulate_register_kernel(pairs, *, steps, width, lanes_per_thread, strip, se
 
 
 # (width, lanes per thread, strip) of every launch csrc/wavefront.cu's
-# `pm_wavefront_dp` makes: design 1 (strip = width) and design 2.
+# `pm_wavefront_dp` makes: one warp per pair (strip = width) below 256
+# lanes, temporal blocking from 256 up.
 _REG_GEOMETRIES = [
-    (32, 2, 32), (64, 2, 64), (128, 4, 128), (256, 8, 256), (512, 16, 512),
-    (1024, 32, 1024), (256, 6, 128), (512, 6, 128), (2048, 6, 128),
-    (8192, 10, 256), (16384, 18, 512),
+    (32, 2, 32), (64, 2, 64), (128, 4, 128), (256, 6, 128), (512, 6, 128),
+    (1024, 6, 128), (2048, 6, 128), (4096, 6, 128), (8192, 10, 256),
+    (16384, 18, 512),
 ]
 
 
@@ -288,11 +289,33 @@ def test_k1_padded_rows_hold_the_reference_characters():
         np.testing.assert_array_equal(got[p], want)
 
 
-def test_k1_design_must_serve_the_width():
-    A, B, al, bl = port_wf.pack_pairs(_pairs(1, (10, 12)), CPU)
-    for design, width in (("warp", 2048), ("blocked", 128), ("blocked", 32768), ("fast", 512)):
-        with pytest.raises(ValueError):
-            port_wf.wavefront_dp(A, B, al, bl, steps=64, width=width, design=design)
-    for design in port_wf.DESIGNS:
-        got = port_wf.wavefront_dp(A, B, al, bl, steps=64, width=512, design=design)
-        assert got.shape == (4, 2, 512)
+def _source_launches() -> dict:
+    """width -> (lanes per thread, threads at most, strip) of each case of
+    `pm_wavefront_dp`'s switch in csrc/wavefront.cu."""
+    import pathlib
+    import re
+
+    src = pathlib.Path(port_wf.__file__).parent.parent / "csrc" / "wavefront.cu"
+    cases = re.findall(
+        r"case (\d+): PM_LAUNCH\((\d+), (\d+), (?:true|false), (\d+)\);", src.read_text()
+    )
+    return {int(w): (int(lanes), int(maxt), int(strip)) for w, lanes, maxt, strip in cases}
+
+
+@pytest.mark.parametrize("width", [32 << k for k in range(10)])
+def test_k1_design_must_serve_the_width(width):
+    """The layout the CUDA kernel takes at `width` is one the schedule test
+    above rehearses, and passes the launch's own checks: L even (windows
+    start at exact halves), the computed lanes cover the band, the threads
+    fit the block, and a strip leaves 32 halo lanes on each side."""
+    launches = _source_launches()
+    assert sorted(launches) == [32 << k for k in range(10)]
+    assert max(launches) == port_wf.MAX_REG_WIDTH
+    lanes, max_threads, strip = launches[width]
+    assert (width, lanes, strip) in _REG_GEOMETRIES
+    assert lanes % 2 == 0 and width % strip == 0
+    if strip == width:  # one warp per pair
+        assert width < 256 and width // lanes <= min(32, max_threads)
+    else:
+        assert width >= 256 and 32 * (width // strip) <= max_threads
+        assert 32 * lanes - strip >= 64 and 32 * lanes <= width
