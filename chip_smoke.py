@@ -18,12 +18,16 @@ result line:
    registers for device memory).  Buffers must be bit-identical; every
    pair must equal the native banded engine.
 2a. K1 against its plain version: a short launch at every width of its
-   register kernel (32 ... 16384), then the batch-1 refine shapes: one
-   pair of the median refine segment (11.75 kb a side, W = 512)
-   bit-identical to the plain version, and one of the longest (46 kb a
-   side, ~92 k steps) equal to the native banded engine through K1 + K2.
-   Both are timed with CUDA events, in microseconds per anti-diagonal
-   step.
+   register kernel (32 ... 16384), then the batch-1 refine shapes through
+   K1 and K2: one pair of the median refine segment (11.75 kb a side, W =
+   512), both buffers bit-identical to the plain versions', and one of the
+   longest (46 kb a side, ~92 k steps) equal to the native banded engine.
+   Both are timed with CUDA events: K1 in microseconds per anti-diagonal
+   step, K2 in nanoseconds per move.  Then K2 on the edge batch
+   (``traceback_edge_pairs``: a long DIAG run, indels in every slot of a
+   word, a walk forced at both band edges, empty sides, unrelated
+   sequences, a pair whose lengths do not fit) at W = 64 and 512,
+   bit-identical to the plain version.
 2b. K3 (``banded_dp``, one pair) and K4 (``banded_dp_batch``) against
    ``banded_dp_plain``: one ~8 kb pair at W = 512 and eight pairs of
    2-8 kb at W = 64, 256, 512, 1024, 4096 and 32768 (the widest band
@@ -52,19 +56,20 @@ result line:
 Launch counters are zeroed before each path (phases 3-4 together, 2b's
 entry points, 5, 6) and read after it.  The script imports only the port
 (``paramugsy_tpu_torch``), never JAX or the JAX package directly.  Without
-a CUDA device it exits 2.  ``python3 chip_smoke.py --k1`` runs phases 1
-and 2a only (a quick check after a K1 edit); ``--profile`` runs phase 1
-and a traced run of phase 6 (device time per kernel, busy share).
+a CUDA device it exits 2.  ``python3 chip_smoke.py --wavefront`` runs
+phases 1 and 2a only (a quick check after an edit of K1 or K2); ``--profile``
+runs phase 1 and a traced run of phase 6 (device time per kernel, busy
+share).
 Neither prints the result line.
 
 Each kernel's ``bound_ms`` in the ``kernels`` line is the larger of its
-bytes (inputs read once, output written once; for K2 only the path's
-words that this run's walks read) over 3.35 TB/s and its integer
+bytes (inputs read once, output written once; for K2 only the distinct
+dirs words that this run's walks read, ``k2_bound``) over 3.35 TB/s and its integer
 operations over the card's 32-bit integer rate: 132 SMs x 128 lanes x
 1.98 GHz = 33.5 T op/s.  Per SM and clock Hopper issues 64 lanes of
 integer add, compare, select, min/max and logic on its ALU pipe and 64
 more of IMAD on its FMA pipe, which the compiler also uses for integer
-adds and moves (K1's SASS mix, ``--k1``, counts both), so 128 lanes is
+adds and moves (K1's SASS mix, ``--wavefront``, counts both), so 128 lanes is
 the ceiling of a mixed integer stream: half the data sheet's 67 TFLOP/s
 float32, which counts an FMA as two operations.  A DP cell counts 7
 operations: character compare, score select, diag add, max(up, left),
@@ -242,6 +247,42 @@ def kernel_pairs(rng, n_pairs: int, length: int, n_del: int, sub_rate: float = 0
     return pairs
 
 
+def traceback_edge_pairs(rng, length: int, width: int) -> list:
+    """Pairs for one K2 launch at band `width` (>= 64) whose walks reach
+    every branch of the CUDA kernel's jump logic:
+
+    0. `length` bp with 1% substitutions: one DIAG run longer than 32
+       word rows (length > 256), over several jump round trips when
+       length > 1024;
+    1. eight 2 bp deletions, 2. eight 2 bp insertions, 61 bp apart (their
+       positions take every residue mod 8): indel moves in every slot of a
+       word, the first and last of each parity included;
+    3. a deletion of W/2 bp, an insertion of W - 1 bp and a deletion of
+       W/2 - 1 bp: the alignment runs along lane 0 and then lane W - 1,
+       the band's edges, where the walk is forced;
+    4, 5. one side empty (the walk is all tail);
+    6. two unrelated sequences: an event every few moves.
+
+    The caller makes a pair get -1 by passing lengths that do not fit."""
+    def seq(n):
+        return rng.integers(0, 4, size=n).astype(np.int8)
+
+    a = seq(length)
+    b = a.copy()
+    m = rng.random(length) < 0.01
+    b[m] = ((b[m] + 1) % 4).astype(np.int8)
+    pairs = [(a, b)]
+    base = seq(700)
+    cuts = [100 + 61 * t for t in range(8)]
+    deleted = np.delete(base, [c + d for c in cuts for d in (0, 1)])
+    pairs += [(base, deleted), (deleted, base)]
+    x, y, z = seq(300), seq(300), seq(300)
+    d, e, f = seq(width // 2), seq(width - 1), seq(width // 2 - 1)
+    pairs.append((np.concatenate([x, d, y, z, f]), np.concatenate([x, y, e, z])))
+    pairs += [(seq(90), seq(0)), (seq(0), seq(70)), (seq(260), seq(230))]
+    return pairs
+
+
 def _cuda_ms(fn, reps: int) -> float:
     import torch
 
@@ -272,6 +313,30 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / INT32_OPS_PER_S * 1e3
     return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+
+def k2_bound(buf, a_len, b_len, width: int) -> tuple[float, str]:
+    """K2's least time for one launch: the distinct dirs words its walks
+    must read (one per word row and lane that a move inside the rectangle
+    and the band reads), the lengths, and the whole output buffer; 7
+    operations a move."""
+    buf = buf.cpu().numpy()
+    a_len, b_len = a_len.cpu().numpy(), b_len.cpu().numpy()
+    words, moves = 0, 0
+    for p in range(len(buf)):
+        n = int(buf[p, 0])
+        if n <= 0:
+            continue
+        k = np.arange(n)
+        codes = (buf[p, 1 + k // 16].view(np.uint32) >> (2 * (k % 16)).astype(np.uint32)) & 3
+        # Position before each move: DIAG and UP consume a, DIAG and LEFT b.
+        i = int(a_len[p]) - np.concatenate(([0], np.cumsum(codes != 2)[:-1]))
+        j = int(b_len[p]) - np.concatenate(([0], np.cumsum(codes != 1)[:-1]))
+        w = j - i + width // 2
+        read = (i > 0) & (j > 0) & (w > 0) & (w < width - 1)
+        words += len(np.unique(((i + j - 1) >> 4)[read] * width + w[read]))
+        moves += n
+    return bound(4 * words + 8 * len(buf) + 4 * buf.size, OPS_PER_CELL * moves)
 
 
 def check_kernels(pairs, device, reps: int) -> dict:
@@ -313,15 +378,16 @@ def check_kernels(pairs, device, reps: int) -> dict:
             raise AssertionError(f"pair {p} differs from native at W={width}")
     seq_bytes = A.numel() + B.numel() + 8 * len(pairs)
     k1_bound = bound(seq_bytes + 4 * dirs.numel(), OPS_PER_CELL * dirs.numel() * 16)
-    moves = int(host[:, 0].sum())
-    k2_bound = bound(4 * moves + 8 * len(pairs) + 4 * tb.numel(), OPS_PER_CELL * moves)
+    k2_bnd = k2_bound(tb, al, bl, width)
     row = {
         "pairs": len(pairs), "length": len(pairs[0][0]), "width": width,
         "steps": steps, "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms,
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
+        # Pairs walk side by side: per move of the longest walk.
+        "k2_ns_per_move": k2_ms * 1e6 / int(host[:, 0].max()),
         "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_err,
         "k1_bound_ms": k1_bound[0], "k1_bound_by": k1_bound[1],
-        "k2_bound_ms": k2_bound[0], "k2_bound_by": k2_bound[1],
+        "k2_bound_ms": k2_bnd[0], "k2_bound_by": k2_bnd[1],
     }
     print("kernel_check", json.dumps(row), flush=True)
     return row
@@ -331,12 +397,14 @@ def _steps_of(pairs) -> int:
     return -(-max(len(a) + len(b) for a, b in pairs) // 128) * 128
 
 
-def check_k1_batch1(device) -> dict:
+def check_batch1(device) -> dict:
     """K1 against its plain version on a short launch of two pairs at every
-    width of the register kernel, then the batch-1 refine shapes, timed
-    with CUDA events: the median refine pair's buffer must be bit-identical
-    to the plain version's; the longest refine pair (plain would take ~30
-    s) must give the native banded engine's alignment through K1 + K2."""
+    width of the register kernel; then the batch-1 refine shapes through K1
+    and K2, timed with CUDA events: the median refine pair's buffers must
+    be bit-identical to the plain versions'; the longest refine pair (plain
+    K1 would take ~30 s) must give the native banded engine's alignment;
+    then K2 on the edge batch (`traceback_edge_pairs`, its last pair given
+    lengths that do not fit) at W 64 and 512, bit-identical to plain."""
     import torch
 
     from paramugsy_tpu_torch.ops import wavefront as wf
@@ -358,7 +426,8 @@ def check_k1_batch1(device) -> dict:
         A, B, al, bl = wf.pack_pairs(pairs, device)
         kw = dict(steps=_steps_of(pairs), width=512)
         dirs = wf.wavefront_dp(A, B, al, bl, **kw)
-        out = {"steps": kw["steps"]}
+        tb = wf.wavefront_traceback(dirs, al, bl, width=512)
+        out = {"steps": kw["steps"], "moves": int(tb[0, 0])}
         if shape == "median":
             want, out["plain_ms"] = _once_ms(lambda: wf.wavefront_dp_plain(A, B, al, bl, **kw))
             if not torch.equal(dirs, want):
@@ -367,15 +436,43 @@ def check_k1_batch1(device) -> dict:
             out["bound"] = bound(2 * REFINE_MEDIAN_BP + 8 + 4 * dirs.numel(), cell_ops)
             # One pair can use one SM: 1/132 of the card's integer rate.
             out["one_sm_bound_us_per_step"] = cell_ops / (INT32_OPS_PER_S / 132) * 1e6 / kw["steps"]
+            want_tb, out["k2_plain_ms"] = _once_ms(
+                lambda: wf.wavefront_traceback_plain(dirs, al, bl, width=512)
+            )
+            out["k2_max_abs_err"] = int((tb.long() - want_tb.long()).abs().max())
+            if not torch.equal(tb, want_tb):
+                raise AssertionError("K2 differs from plain at the median refine pair")
+            out["k2_bound"] = k2_bound(tb, al, bl, 512)
         else:
-            tb = wf.wavefront_traceback(dirs, al, bl, width=512).cpu().numpy()
+            host = tb.cpu().numpy()
             a, b = pairs[0]
-            if wf._runs_of_path_words(tb[0, 1:], int(tb[0, 0])) != align_long_segment(a, b):
-                raise AssertionError("K1: longest refine pair differs from native")
+            if wf._runs_of_path_words(host[0, 1:], int(host[0, 0])) != align_long_segment(a, b):
+                raise AssertionError("K1 + K2: longest refine pair differs from native")
         out["ms"] = _cuda_ms(lambda: wf.wavefront_dp(A, B, al, bl, **kw), 20)
         out["us_per_step"] = out["ms"] * 1e3 / kw["steps"]
+        # K2's time includes the wrapper's zeroing of the output buffer.
+        out["k2_ms"] = _cuda_ms(lambda: wf.wavefront_traceback(dirs, al, bl, width=512), 50)
+        out["k2_ns_per_move"] = out["k2_ms"] * 1e6 / out["moves"]
         row[shape] = out
-    print("k1_batch1", json.dumps(row), flush=True)
+
+    row["edge"] = []
+    for width in (64, 512):
+        pairs = traceback_edge_pairs(rng, 5000, 64)
+        pairs.append(pairs[-1])
+        A, B, al, bl = wf.pack_pairs(pairs, device)
+        steps = _steps_of(pairs)
+        bl[-1] = steps  # does not fit: -1
+        dirs = wf.wavefront_dp(A, B, al, bl, steps=steps, width=width)
+        tb = wf.wavefront_traceback(dirs, al, bl, width=width)
+        want = wf.wavefront_traceback_plain(dirs, al, bl, width=width)
+        if not torch.equal(tb, want) or int(tb[-1, 0]) != -1:
+            raise AssertionError(f"K2 differs from plain on the edge batch at W={width}")
+        row["edge"].append({
+            "width": width, "pairs": len(pairs), "moves": tb[:, 0].tolist(),
+            "max_abs_err": int((tb.long() - want.long()).abs().max()),
+            "k2_ms": _cuda_ms(lambda: wf.wavefront_traceback(dirs, al, bl, width=width), 20),
+        })
+    print("batch1", json.dumps(row), flush=True)
     return row
 
 
@@ -714,6 +811,11 @@ def profile_realistic(device) -> dict:
         "busy_share": busy / 1e3 / traced if busy else "not measured",
         "launches": _launch_counts(),
         "top_kernels_ms_count": {k: v for k, v in top},
+        # K1 and K2 by name, wherever they rank.
+        "wavefront_kernels_ms_count": {
+            k: v for k, v in kernels.items()
+            if "wavefront_reg_kernel" in k or "traceback_kernel" in k
+        },
     }
     print("profile_realistic", json.dumps(row), flush=True)
     return row
@@ -774,15 +876,15 @@ def main(argv: list[str]) -> int:
     build_native()
     print(f"native build: {time.perf_counter() - t0:.3f} s", flush=True)
 
-    if argv == ["--k1"]:
+    if argv == ["--wavefront"]:
         print_sass_mix()
-        check_k1_batch1(device)
+        check_batch1(device)
         return 0
     if argv == ["--profile"]:
         profile_realistic(device)
         return 0
     if argv:
-        raise SystemExit(f"usage: {sys.argv[0]} [--k1 | --profile]")
+        raise SystemExit(f"usage: {sys.argv[0]} [--wavefront | --profile]")
 
     # Phase 2: kernels against their plain versions, at the bench shape
     # and at every band width up to one past the register kernel's.
@@ -800,8 +902,9 @@ def main(argv: list[str]) -> int:
     if widths != [512, 1024, 2048, 4096, 8192, 16384, 32768]:
         raise AssertionError(f"kernel checks reached widths {widths}")
 
-    # Phase 2a: K1 at every register width, and the batch-1 refine shapes.
-    k1_batch1 = check_k1_batch1(device)
+    # Phase 2a: K1 at every register width, the batch-1 refine shapes
+    # through K1 and K2, and K2 on the edge batch.
+    batch1 = check_batch1(device)
 
     # Phase 2b: K3/K4 against their plain version, then their path.
     banded = check_banded(device, reps=3)
@@ -850,7 +953,7 @@ def main(argv: list[str]) -> int:
             "bound_ms": bench_shape["k1_bound_ms"],
             "bound_by": bench_shape["k1_bound_by"],
             "library_ms": None,
-            "us_per_step_batch1": k1_batch1["median"]["us_per_step"],
+            "us_per_step_batch1": batch1["median"]["us_per_step"],
         },
         {
             "name": "wavefront_traceback",
@@ -858,12 +961,17 @@ def main(argv: list[str]) -> int:
             "source": "paramugsy_tpu_torch/csrc/traceback.cu",
             "replaces": "paramugsy_tpu/ops/pallas_extend.py:726",
             "launches": launches["wavefront_traceback"],
-            "max_abs_err": max(r["k2_max_abs_err"] for r in [bench_shape, *wide]),
+            "max_abs_err": max(
+                [r["k2_max_abs_err"] for r in [bench_shape, *wide]]
+                + [batch1["median"]["k2_max_abs_err"]]
+                + [r["max_abs_err"] for r in batch1["edge"]]
+            ),
             "ms": bench_shape["k2_ms"],
             "plain_ms": bench_shape["k2_plain_ms"],
             "bound_ms": bench_shape["k2_bound_ms"],
             "bound_by": bench_shape["k2_bound_by"],
             "library_ms": None,
+            "ns_per_move_batch1": batch1["median"]["k2_ns_per_move"],
         },
         {
             "name": "banded_dp",

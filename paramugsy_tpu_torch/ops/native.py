@@ -1,12 +1,16 @@
 """ctypes bindings for the native runtime kernels (native/pm_native.cc).
 
 Loaded lazily; callers fall back to the NumPy reference implementation when
-the library is absent.  Build with ``make -C native`` (auto-attempted once
-per process).
+the library is absent.  Built from ``native/`` on first use, once per
+process: under an exclusive lock (``paramugsy_tpu_torch/build/native.lock``)
+into a temporary name that one ``os.replace`` moves onto ``libpm_native.so``,
+so no process, of this package or another, opens a half-written library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import logging
 import os
 import subprocess
 from typing import Optional
@@ -15,6 +19,9 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libpm_native.so")
+_LOCK_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "native.lock"
+)
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -25,25 +32,7 @@ _tried = False
 # (ADVICE r3: a stale v2 .so crashed the mandatory _entries_of_chain path).
 PM_VERSION_EXPECTED = 4
 
-
-def _make(force: bool = False) -> bool:
-    if not os.path.exists(os.path.join(_NATIVE_DIR, "Makefile")):
-        return False
-    try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR] + (["-B"] if force else []),
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        return True
-    except Exception:
-        import logging
-
-        logging.getLogger("paramugsy.engines").warning(
-            "native build failed; using host NumPy fallbacks", exc_info=True
-        )
-        return False
+_log = logging.getLogger("paramugsy.engines")
 
 
 def _version_of(lib: ctypes.CDLL) -> int:
@@ -54,41 +43,63 @@ def _version_of(lib: ctypes.CDLL) -> int:
         return 0
 
 
+def _build() -> Optional[ctypes.CDLL]:
+    """Build the library into a temporary name in the native directory,
+    load it from there (a fresh path: dlopen caches by pathname, so a stale
+    library already loaded from _LIB_PATH cannot shadow it), then rename
+    it onto _LIB_PATH.  None when the build fails or is stale itself."""
+    if not os.path.exists(os.path.join(_NATIVE_DIR, "Makefile")):
+        return None
+    tmp = f".libpm_native.{os.getpid()}.tmp.so"
+    tmp_path = os.path.join(_NATIVE_DIR, tmp)
+    try:
+        subprocess.run(
+            ["make", "-C", _NATIVE_DIR, "-B", f"TARGET={tmp}"],
+            check=True, capture_output=True, timeout=120,
+        )
+        lib = ctypes.CDLL(tmp_path)
+        if _version_of(lib) < PM_VERSION_EXPECTED:
+            _log.warning(
+                "libpm_native.so version %d < expected %d even after rebuild; "
+                "using host NumPy fallbacks", _version_of(lib), PM_VERSION_EXPECTED,
+            )
+            return None
+        os.replace(tmp_path, _LIB_PATH)  # the mapping survives the rename
+        return lib
+    except (OSError, subprocess.SubprocessError):
+        _log.warning("native build failed; using host NumPy fallbacks", exc_info=True)
+        return None
+    finally:
+        if os.path.exists(tmp_path):
+            os.unlink(tmp_path)
+
+
+def _load_or_build() -> Optional[ctypes.CDLL]:
+    """Under the lock: the library on disk when it loads and is current,
+    else a fresh build.  A file that does not load is taken for one that
+    a build without the lock (the reference's loader runs make in place)
+    is still writing, and is rebuilt and replaced."""
+    os.makedirs(os.path.dirname(_LOCK_PATH), exist_ok=True)
+    with open(_LOCK_PATH, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(_LIB_PATH):
+            try:
+                lib = ctypes.CDLL(_LIB_PATH)
+            except OSError:
+                lib = None
+            if lib is not None and _version_of(lib) >= PM_VERSION_EXPECTED:
+                return lib
+        return _build()
+
+
 def load() -> Optional[ctypes.CDLL]:
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH) and not _make():
+    lib = _load_or_build()
+    if lib is None:
         return None
-    if not os.path.exists(_LIB_PATH):
-        return None
-    # A library that exists but cannot load is a broken install: fail
-    # loudly instead of silently degrading to the slow path.
-    lib = ctypes.CDLL(_LIB_PATH)
-    if _version_of(lib) < PM_VERSION_EXPECTED:
-        # Stale .so (e.g. a cached binary older than the sources):
-        # force-rebuild, then load via a temp copy — dlopen caches by
-        # pathname, so re-opening _LIB_PATH would return the old handle.
-        if not _make(force=True):
-            return None
-        import shutil
-        import tempfile
-
-        fd, tmp = tempfile.mkstemp(suffix=".so", prefix="pm_native_")
-        os.close(fd)
-        shutil.copy2(_LIB_PATH, tmp)
-        lib = ctypes.CDLL(tmp)
-        os.unlink(tmp)  # the mapping survives the unlink
-        if _version_of(lib) < PM_VERSION_EXPECTED:
-            import logging
-
-            logging.getLogger("paramugsy.engines").warning(
-                "libpm_native.so version %d < expected %d even after "
-                "rebuild; using host NumPy fallbacks",
-                _version_of(lib), PM_VERSION_EXPECTED,
-            )
-            return None
     lib.pm_nw_align_batch.restype = ctypes.c_int
     lib.pm_nw_align_batch.argtypes = [
         ctypes.POINTER(ctypes.c_int8),

@@ -297,7 +297,9 @@ def wavefront_traceback(
 ) -> torch.Tensor:
     """K2: walk-order move codes, int32 [batch, 1 + cap16] (column 0 =
     number of moves, -1 for a pair whose lengths do not fit the buffer;
-    every word past the last one used is zero)."""
+    every word past the last one used is zero).  The CUDA kernel walks
+    each pair with one warp (csrc/traceback.cu) and writes only the words
+    that hold an UP or LEFT move, so the buffer is zeroed here."""
     if dirs.dtype != torch.int32 or dirs.dim() != 3 or dirs.shape[2] != width:
         raise ValueError("dirs must be int32 [steps/16, batch, width]")
     steps16, batch, _ = dirs.shape

@@ -319,3 +319,208 @@ def test_k1_design_must_serve_the_width(width):
     else:
         assert width >= 256 and 32 * (width // strip) <= max_threads
         assert 32 * lanes - strip >= 64 and 32 * lanes <= width
+
+
+# --------------------------------------------------------------------------
+# K2: the CUDA kernel's warp walk, rehearsed on the CPU
+# --------------------------------------------------------------------------
+
+_MASK = 0xFFFFFFFF
+_EVEN, _ODD = 0x33333333, 0xCCCCCCCC
+
+
+def _traceback_groups() -> int:
+    """kGroups of csrc/traceback.cu: word rows per lane in one jump."""
+    import pathlib
+    import re
+
+    src = pathlib.Path(port_wf.__file__).parent.parent / "csrc" / "traceback.cu"
+    return int(re.search(r"constexpr int kGroups = (\d+);", src.read_text()).group(1))
+
+
+class _Path:
+    """`Path` of csrc/traceback.cu: the output row and its pending word."""
+
+    def __init__(self, row):
+        self.row, self.pw, self.pend = row, -1, 0
+
+    def emit(self, m, n, code):
+        pattern = code * 0x55555555
+        f, l = m >> 4, (m + n - 1) >> 4
+        if f != self.pw:
+            if self.pw >= 0:
+                self.row[1 + self.pw] = self.pend
+            self.pw, self.pend = f, 0
+        from_m = (pattern << (2 * (m & 15))) & _MASK
+        to_end = ((4 << (2 * ((m + n - 1) & 15))) - 1) & _MASK
+        if f == l:
+            self.pend |= from_m & to_end
+            return
+        self.row[1 + f] = self.pend | from_m
+        self.row[2 + f : 1 + l] = pattern
+        self.pw, self.pend = l, pattern & to_end
+
+
+def _emulate_warp_traceback(dirs, a_len, b_len, *, width):
+    """A NumPy model of csrc/traceback.cu's `traceback_kernel`, one warp
+    per pair: the 32 lanes' loads (the two-row tile around w, the
+    kGroups x 32 word rows of a jump, each only where the walk can reach
+    it and inside the buffer), __ballot_sync + __ffs + __shfl_sync as
+    array ops, and the writes of the pending word.  Returns the buffer and,
+    per pair, the round trips (load rounds) its walk took."""
+    words = dirs.numpy().view(np.uint32).astype(np.int64)
+    steps16, batch, _ = words.shape
+    groups = _traceback_groups()
+    out = np.zeros((batch, 1 + port_wf.path_words(16 * steps16)), np.int64)
+    lanes = np.arange(32)
+    jump = lanes[None, :] + 32 * np.arange(groups)[:, None]  # [u, t]
+    half = width // 2
+    trips = []
+    for p in range(batch):
+        path = _Path(out[p])
+        i, j = int(a_len[p]), int(b_len[p])
+        if i < 0 or j < 0 or i + j > 16 * steps16:
+            out[p, 0] = -1
+            trips.append(0)
+            continue
+        tr, t0, top, low, m, n_trips = -1, 0, None, None, 0, 0
+        while i > 0 and j > 0:
+            w = j - i + half
+            if w <= 0 or w >= width - 1:
+                code = port_wf.UP if w <= 0 else port_wf.LEFT
+                path.emit(m, 1, code)
+                m += 1
+                i, j = (i - 1, j) if code == port_wf.UP else (i, j - 1)
+                continue
+            s = i + j - 1
+            r, k = s >> 4, s & 15
+            if r > tr or r < tr - 1 or w < t0 or w >= t0 + 32:
+                tr, t0 = r, max(min(w - 16, width - 32), 0)
+                c = t0 + lanes
+                top = np.where(c < width, words[r, p, np.minimum(c, width - 1)], 0)
+                low = np.where((c < width) & (r > 0), words[max(r - 1, 0), p, np.minimum(c, width - 1)], 0)
+                n_trips += 1
+            par = _ODD if s & 1 else _EVEN
+            lim = min(i, j)
+            ev = int((top if r == tr else low)[w - t0])
+            x = ev & par & ((4 << (2 * k)) - 1) & _MASK
+            if x:
+                run = (k - ((x.bit_length() - 1) >> 1)) >> 1
+            else:
+                run, nxt = (k >> 1) + 1, r - 1
+                if r == tr and run < lim:
+                    ev = int(low[w - t0])
+                    x = ev & par
+                    if not x:
+                        run, nxt = run + 8, nxt - 1
+                while not x and run < lim:
+                    need = run + 8 * jump < lim
+                    rows = nxt - jump
+                    assert (rows[need] >= 0).all()
+                    v = np.where(need, words[np.maximum(rows, 0), p, w], 0)
+                    n_trips += 1
+                    for u in range(groups):
+                        hit = np.flatnonzero(v[u] & par)
+                        if not x and len(hit):
+                            t = int(hit[0])
+                            ev = int(v[u, t])
+                            x = ev & par
+                            run += 8 * (t + 32 * u)
+                    if not x:
+                        run, nxt = run + 8 * 32 * groups, nxt - 32 * groups
+                if x:
+                    run += (14 + (s & 1) - ((x.bit_length() - 1) >> 1)) >> 1
+            if run >= lim:
+                m, i, j = m + lim, i - lim, j - lim
+                break
+            m, i, j = m + run, i - run, j - run
+            code = (ev >> (2 * ((x.bit_length() - 1) >> 1))) & 3
+            path.emit(m, 1, code)
+            m += 1
+            i, j = (i - 1, j) if code == port_wf.UP else (i, j - 1)
+        if i > 0:
+            path.emit(m, i, port_wf.UP)
+        if j > 0:
+            path.emit(m, j, port_wf.LEFT)
+        m += i + j
+        if path.pw >= 0:
+            out[p, 1 + path.pw] = path.pend
+        out[p, 0] = m
+        trips.append(n_trips)
+    return out.astype(np.uint32).view(np.int32), trips
+
+
+def _walk(buf_row, a_len, b_len, width):
+    """Replay one pair's moves from K2's buffer: per move (s, w, code,
+    read), where `read` says the walk read the code (inside the rectangle
+    and the band)."""
+    n = int(buf_row[0])
+    codes = (buf_row[1 + np.arange(n) // 16].view(np.uint32) >> (2 * (np.arange(n) % 16))) & 3
+    i, j, moves = int(a_len), int(b_len), []
+    for code in codes.tolist():
+        w = j - i + width // 2
+        moves.append((i + j - 1, w, code, i > 0 and j > 0 and 0 < w < width - 1))
+        i, j = i - (code != port_wf.LEFT), j - (code != port_wf.UP)
+    assert i == j == 0
+    return moves
+
+
+def _edge_batch(width):
+    """chip_smoke's adversarial K2 batch (its long DIAG pair at 1.5 kb),
+    and lengths that give its last pair -1."""
+    import chip_smoke
+
+    pairs = chip_smoke.traceback_edge_pairs(np.random.default_rng(6), 1500, width)
+    pairs.append(pairs[-1])
+    steps = -(-max(len(a) + len(b) for a, b in pairs) // 16) * 16
+    return pairs, steps
+
+
+def test_k2_edge_batch_equals_reference():
+    """The pairs the jump logic must get right (a DIAG run over more than
+    32 word rows, indels in every slot of a word, a walk forced at both
+    band edges, one side empty, unrelated sequences), pinned against the
+    reference's traceback; the last pair, given lengths that do not fit,
+    gets -1 (the reference has no such case and is not asked)."""
+    width = 64
+    pairs, steps = _edge_batch(width)
+    lens = np.array([(len(a), len(b)) for a, b in pairs], np.int32)
+    want = np.asarray(
+        ref_wf.wavefront_dp_device_tb(
+            *_ref_streams(pairs, steps, width), jnp.asarray(lens), width=width,
+            chunk=16, batch=len(pairs), interpret=True,
+        )
+    )
+    A, B, al, bl = port_wf.pack_pairs(pairs, CPU)
+    bl[-1] = steps
+    dirs = port_wf.wavefront_dp(A, B, al, bl, steps=steps, width=width)
+    got = port_wf.wavefront_traceback(dirs, al, bl, width=width).numpy()
+    np.testing.assert_array_equal(got[:-1], want[:-1])
+    assert got[-1, 0] == -1 and not got[-1, 1:].any()
+    # The batch reaches what it is built for.
+    walks = [_walk(got[p], *lens[p], width) for p in range(len(pairs) - 1)]
+    # Pair 0 is one DIAG run, longer than one jump round trip covers.
+    assert not any(c for _, _, c, _ in walks[0])
+    assert len(walks[0]) > 8 * 32 * _traceback_groups()
+    slots = {s & 15 for wk in walks for s, _, c, read in wk if c and read}
+    assert slots == set(range(16))
+    edges = walks[3]
+    assert any(w <= 0 for _, w, _, _ in edges) and any(w >= width - 1 for _, w, _, _ in edges)
+    assert got[4, 0] == 90 and got[5, 0] == 70
+
+
+@pytest.mark.parametrize("width", [16, 64, 512])
+def test_k2_warp_walk_equals_plain(width):
+    """csrc/traceback.cu's walk (tile, jumps over word rows, pending-word
+    writes, -1) reproduces the plain version's whole buffer: the edge
+    batch at a narrow band (whose tile is clipped to W < 32 lanes), at
+    the edge-testing band and at the refine segments' W 512."""
+    pairs, steps = _edge_batch(64)
+    A, B, al, bl = port_wf.pack_pairs(pairs, CPU)
+    bl[-1] = steps
+    dirs = port_wf.wavefront_dp(A, B, al, bl, steps=steps, width=width)
+    want = port_wf.wavefront_traceback_plain(dirs, al, bl, width=width).numpy()
+    got, trips = _emulate_warp_traceback(dirs, al, bl, width=width)
+    np.testing.assert_array_equal(got, want)
+    # The long DIAG pair crosses its ~1.5 k moves in a few round trips.
+    assert trips[0] <= 8
