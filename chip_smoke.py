@@ -52,14 +52,26 @@ result line:
    sha256, every long refine segment must have run on K1/K2 (as many as
    the reference sent to its host banded engine), and both kernels must
    have launched.
+7. The windowed pair path: the 6,264,404 bp pair (``build_pair``; the
+   length of P. aeruginosa PAO1's chromosome, over the 4 Mbp window)
+   through the ``nucmer`` CLI twice (first, warm); the delta body must
+   equal the JAX reference's, with its 2 x 2 grid of window pairs seeded
+   once each (4 seeding dispatches) per run.
+7b. The island pair with 1 Mbp windows through ``align_pair`` twice: the
+   entries must equal the reference's, with 9 window pairs seeded and 4
+   long segments on K1 and K2 per run.
+8. The 4 x 2 Mbp family (seed 7) through ``align -sequential -config``
+   with 1 Mbp windows twice: the MAF must equal the reference's sha256,
+   with 54 window pairs seeded per run.
 
 Launch counters are zeroed before each path (phases 3-4 together, 2b's
-entry points, 5, 6) and read after it.  The script imports only the port
-(``paramugsy_tpu_torch``), never JAX or the JAX package directly.  Without
+entry points, 5, 6, and 7-8 together) and read after it.  The script
+imports only the port (``paramugsy_tpu_torch``), never JAX or the JAX
+package directly.  Without
 a CUDA device it exits 2.  ``python3 chip_smoke.py --wavefront`` runs
 phases 1 and 2a only (a quick check after an edit of K1 or K2); ``--profile``
-runs phase 1 and a traced run of phase 6 (device time per kernel, busy
-share).
+runs phase 1 and traced runs of phases 6, 5, 7 and 8 (device time per
+kernel, busy share).
 Neither prints the result line.
 
 Each kernel's ``bound_ms`` in the ``kernels`` line is the larger of its
@@ -126,6 +138,35 @@ REALISTIC_MAF_SHA256 = (
     "59470c2c6569bb99db6ef25e4b8509929f7be4d20db6a75cd50034cb38f4bf05"
 )
 REALISTIC_LONG_SEGMENTS = 151  # the reference's native-banded segments per run
+
+# The windowed pair path (contigs longer than AlignConfig.window =
+# 4,194,304 bp), digests computed as above at commit 00263ef: the
+# reference's nucmer CLI on the 6.26 Mbp pair, its align_pair + DeltaWriter
+# on the island pair with 1 Mbp windows, and its ``align -sequential
+# -config`` on the 4 x 2 Mbp family with 1 Mbp windows.  The port seeds
+# each window pair once, so its dispatches per run count window pairs (the
+# reference's batched count is the same here: every bucket group it forms
+# is a power of two, so it adds no pad rows).
+WINDOWED_BP = 6_264_404  # the length of P. aeruginosa PAO1's chromosome
+WINDOWED_DELTA_SHA256 = (
+    "bc97b90ed67d58241ff1fabbb984c3f84da63d1c2a7d842d98faf8d8922338af"
+)
+WINDOWED_SEEDCLUSTER = 4  # a 2 x 2 window grid
+# The window of phases 7b and 8: 1 Mbp windows overlapping by 64 kb, cut
+# from the default 4 Mbp so that 2 Mbp inputs take the windowed path (a
+# check of coverage, not a setting users run).
+MBP_WINDOW = {"window": 1 << 20, "window_overlap": 1 << 16}
+# The same digest as ISLAND_DELTA_SHA256: windowing leaves this pair's
+# entries unchanged.
+WINDOWED_ISLAND_SHA256 = (
+    "2b0f4368f681e34baae1efc82ed970c88203947476889c1837cd5cc7ca10dfab"
+)
+WINDOWED_ISLAND_SEEDCLUSTER = 9  # a 3 x 3 grid
+WINDOWED_FAMILY_COUNT = 4
+WINDOWED_FAMILY_MAF_SHA256 = (
+    "042339122162e5bfb8269de720986226229924540ff9b95c697bce9837a5533e"
+)
+WINDOWED_FAMILY_SEEDCLUSTER = 54  # 6 pairs x 9 window pairs
 BANDED_WIDTHS = (64, 256, 512, 1024, 4096, 32768)
 
 HBM_BYTES_PER_S = 3.35e12
@@ -186,9 +227,9 @@ def family_fastas(directory: str, n: int, count: int, seed: int = 7) -> list[str
     return paths
 
 
-def headline_fastas(directory: str) -> tuple[str, str]:
-    """Write the bench pair (build_pair, seed 12345) as FASTA."""
-    ref, query = build_pair(np.random.default_rng(12345), HEADLINE_BP)
+def headline_fastas(directory: str, n: int = HEADLINE_BP) -> tuple[str, str]:
+    """Write the bench pair (build_pair, seed 12345, `n` bp) as FASTA."""
+    ref, query = build_pair(np.random.default_rng(12345), n)
     paths = []
     for name, codes in (("smoke_ref", ref), ("smoke_qry", query)):
         path = os.path.join(directory, f"{name}.fa")
@@ -198,6 +239,15 @@ def headline_fastas(directory: str) -> tuple[str, str]:
             f.write("\n")
         paths.append(path)
     return paths[0], paths[1]
+
+
+def windowed_config(directory: str) -> str:
+    """Write the ``-config`` file of the windowed family (1 Mbp windows,
+    64 kb overlap); returns its path."""
+    path = os.path.join(directory, "windowed.json")
+    with open(path, "w") as f:
+        json.dump({"align": MBP_WINDOW}, f)
+    return path
 
 
 def island_pair(n: int = HEADLINE_BP, n_islands: int = 4, length: int = 5000):
@@ -232,6 +282,11 @@ def aligned_bp(text: str) -> int:
 
 def sha256(text: str) -> str:
     return hashlib.sha256(text.encode()).hexdigest()
+
+
+def file_sha256(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
 
 
 def kernel_pairs(rng, n_pairs: int, length: int, n_del: int, sub_rate: float = 0.02):
@@ -707,9 +762,8 @@ def _align_runs(name: str, argv: list, out: str, digest: str) -> list:
             raise AssertionError(f"{name}: align CLI failed")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        with open(out, "rb") as f:
-            if hashlib.sha256(f.read()).hexdigest() != digest:
-                raise AssertionError(f"{name}: MAF differs from the JAX reference")
+        if file_sha256(out) != digest:
+            raise AssertionError(f"{name}: MAF differs from the JAX reference")
         runs.append({
             "wall_s": wall,
             "engines": _engine_delta(before),
@@ -765,41 +819,152 @@ def realistic_phase(device) -> dict:
     return row
 
 
-def profile_realistic(device) -> dict:
-    """The realistic fixture through ``align -sequential -refine``: one
-    warm-up run, two untraced runs, then one run under torch.profiler;
-    device time per kernel (sum of CUDA self time) and the busy share of
-    the traced wall."""
-    import glob
-
+def windowed_pair_phase(device) -> dict:
+    """The 6.26 Mbp pair through the nucmer CLI twice (first, warm): both
+    contigs exceed the 4 Mbp window, so the pair runs as a 2 x 2 grid of
+    window pairs."""
     import torch
+
+    from paramugsy_tpu_torch import cli
+    from paramugsy_tpu_torch.ops import engines
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_fa, qry_fa = headline_fastas(tmp, WINDOWED_BP)
+        out = os.path.join(tmp, "windowed.delta")
+        argv = [
+            "nucmer", "-ref_seq", ref_fa, "-query_seq", qry_fa,
+            "-out_delta", out, "-device", device.type,
+        ]
+        runs = []
+        for _ in range(2):
+            before = dict(engines.COUNTS)
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise AssertionError("windowed pair: nucmer CLI failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(out) as f:
+                text = f.read()
+            if sha256(delta_body(text)) != WINDOWED_DELTA_SHA256:
+                raise AssertionError("windowed pair: delta differs from the JAX reference")
+            used = _engine_delta(before)
+            if used.get(f"seedcluster-{device.type}") != WINDOWED_SEEDCLUSTER:
+                raise AssertionError(
+                    f"windowed pair: {used}; expected {WINDOWED_SEEDCLUSTER} "
+                    f"seeding dispatches on {device.type}"
+                )
+            runs.append({"wall_s": wall, "engines": used})
+    row = {
+        "bp": WINDOWED_BP, "first_s": runs[0]["wall_s"], "warm_s": runs[1]["wall_s"],
+        "aligned_bp": aligned_bp(text), "engines": runs[1]["engines"],
+    }
+    print("windowed_pair", json.dumps(row), flush=True)
+    return row
+
+
+def windowed_island_phase(device) -> dict:
+    """The island pair with 1 Mbp windows through align_pair twice: a 3 x
+    3 window grid whose long segments reach K1 and K2 inside window
+    jobs."""
+    import torch
+
+    from paramugsy_tpu_torch.cli import delta_text
+    from paramugsy_tpu_torch.ops import engines
+    from paramugsy_tpu_torch.ops.align_pair import AlignConfig, align_pair
+
+    ref, query = island_pair()
+    cfg = AlignConfig(break_len=ISLAND_BREAK_LEN, **MBP_WINDOW)
+    runs = []
+    for _ in range(2):
+        before, launched = dict(engines.COUNTS), _launch_counts()
+        t0 = time.perf_counter()
+        entries = align_pair(ref, query, "island.r", "island.q", cfg, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sha256(delta_body(delta_text(entries))) != WINDOWED_ISLAND_SHA256:
+            raise AssertionError("windowed island: entries differ from the JAX reference")
+        used = _engine_delta(before)
+        launches = {k: v - launched[k] for k, v in _launch_counts().items()}
+        if (
+            used.get("device-wavefront") != ISLAND_LONG_SEGMENTS
+            or used.get(f"seedcluster-{device.type}") != WINDOWED_ISLAND_SEEDCLUSTER
+            or min(launches.values()) <= 0
+        ):
+            raise AssertionError(
+                f"windowed island: {used}, launches {launches}; expected "
+                f"{ISLAND_LONG_SEGMENTS} long segments on K1/K2 and "
+                f"{WINDOWED_ISLAND_SEEDCLUSTER} seeding dispatches"
+            )
+        runs.append({"wall_s": wall, "engines": used, "launches": launches})
+    row = {
+        "first_s": runs[0]["wall_s"], "warm_s": runs[1]["wall_s"],
+        "entries": len(entries), "engines": runs[1]["engines"],
+        "launches": runs[1]["launches"],
+    }
+    print("windowed_island", json.dumps(row), flush=True)
+    return row
+
+
+def windowed_family_phase(device) -> dict:
+    """The 4 x 2 Mbp family through ``align -sequential -config`` with 1
+    Mbp windows (first, warm): every pair runs as a 3 x 3 window grid."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = family_fastas(tmp, FAMILY_BP, WINDOWED_FAMILY_COUNT)
+        out = os.path.join(tmp, "windowed_family.maf")
+        argv = [
+            "align", "-sequential", *paths, "-config", windowed_config(tmp),
+            "-out_maf", out, "-device", device.type,
+        ]
+        runs = _align_runs("windowed family", argv, out, WINDOWED_FAMILY_MAF_SHA256)
+    for r in runs:
+        if r["engines"].get(f"seedcluster-{device.type}") != WINDOWED_FAMILY_SEEDCLUSTER:
+            raise AssertionError(
+                f"windowed family: {r['engines']}; expected "
+                f"{WINDOWED_FAMILY_SEEDCLUSTER} seeding dispatches on {device.type}"
+            )
+        if not r["engines"].get("native-nw") or "numpy-nw" in r["engines"]:
+            raise AssertionError(f"windowed family: segments did not run on native NW: {r}")
+    row = {
+        "genomes": WINDOWED_FAMILY_COUNT, "bp": FAMILY_BP,
+        "first": runs[0], "warm": runs[1],
+    }
+    print("windowed_family", json.dumps(row), flush=True)
+    return row
+
+
+def _profile_cli(name: str, argv: list, out: str, digest_of, digest: str) -> dict:
+    """One CLI run traced: a warm-up run, two untraced runs, then one run
+    under torch.profiler; device time per kernel (sum of CUDA self time)
+    and the busy share of the traced wall.  ``digest_of(out)`` must equal
+    `digest` after the traced run."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paramugsy_tpu_torch import cli
 
-    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "realistic", "*.fa")))
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "realistic.maf")
-        argv = ["align", "-sequential", *paths, "-refine", "-out_maf", out, "-device", "cuda"]
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            if cli.main(argv) != 0:
-                raise AssertionError("realistic: align CLI failed")
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        _zero_launches()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if cli.main(argv) != 0:
-                raise AssertionError("realistic: align CLI failed")
-            torch.cuda.synchronize()
-            traced = time.perf_counter() - t0
-        with open(out, "rb") as f:
-            if hashlib.sha256(f.read()).hexdigest() != REALISTIC_MAF_SHA256:
-                raise AssertionError("realistic: MAF differs from the JAX reference")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{name}: CLI failed")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _zero_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{name}: CLI failed")
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    if digest_of(out) != digest:
+        raise AssertionError(f"{name}: output differs from the JAX reference")
     kernels = {}
     for ev in prof.key_averages():
+        # Device events only (kernels, copies): a CPU operator's self device
+        # time is the time of the kernels it launched, counted again.
+        if ev.device_type == DeviceType.CPU:
+            continue
         ms = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0)) / 1e3
         if ms > 0:
             kernels[ev.key] = (ms, ev.count)
@@ -817,8 +982,50 @@ def profile_realistic(device) -> dict:
             if "wavefront_reg_kernel" in k or "traceback_kernel" in k
         },
     }
-    print("profile_realistic", json.dumps(row), flush=True)
+    print(f"profile_{name}", json.dumps(row), flush=True)
     return row
+
+
+def profile_realistic() -> dict:
+    """The realistic fixture through ``align -sequential -refine``, traced."""
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "realistic", "*.fa")))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "realistic.maf")
+        argv = ["align", "-sequential", *paths, "-refine", "-out_maf", out, "-device", "cuda"]
+        return _profile_cli("realistic", argv, out, file_sha256, REALISTIC_MAF_SHA256)
+
+
+def profile_family(windowed: bool) -> dict:
+    """The 8 x 2 Mbp family (phase 5) or the windowed 4 x 2 Mbp family
+    (phase 8) through ``align -sequential``, traced."""
+    with tempfile.TemporaryDirectory() as tmp:
+        count = WINDOWED_FAMILY_COUNT if windowed else FAMILY_COUNT
+        paths = family_fastas(tmp, FAMILY_BP, count)
+        out = os.path.join(tmp, "family.maf")
+        argv = ["align", "-sequential", *paths, "-out_maf", out, "-device", "cuda"]
+        if windowed:
+            argv += ["-config", windowed_config(tmp)]
+        return _profile_cli(
+            "windowed_family" if windowed else "family", argv, out, file_sha256,
+            WINDOWED_FAMILY_MAF_SHA256 if windowed else FAMILY_MAF_SHA256,
+        )
+
+
+def profile_windowed_pair() -> dict:
+    """The 6.26 Mbp windowed pair (phase 7) through ``nucmer``, traced."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_fa, qry_fa = headline_fastas(tmp, WINDOWED_BP)
+        out = os.path.join(tmp, "windowed.delta")
+        argv = ["nucmer", "-ref_seq", ref_fa, "-query_seq", qry_fa, "-out_delta", out,
+                "-device", "cuda"]
+
+        def digest_of(path):
+            with open(path) as f:
+                return sha256(delta_body(f.read()))
+
+        return _profile_cli("windowed_pair", argv, out, digest_of, WINDOWED_DELTA_SHA256)
 
 
 def print_sass_mix() -> None:
@@ -881,7 +1088,10 @@ def main(argv: list[str]) -> int:
         check_batch1(device)
         return 0
     if argv == ["--profile"]:
-        profile_realistic(device)
+        profile_realistic()
+        profile_family(windowed=False)
+        profile_windowed_pair()
+        profile_family(windowed=True)
         return 0
     if argv:
         raise SystemExit(f"usage: {sys.argv[0]} [--wavefront | --profile]")
@@ -935,8 +1145,17 @@ def main(argv: list[str]) -> int:
     if min(refine_launches.values()) <= 0:
         raise AssertionError(f"K1/K2 never launched under -refine: {refine_launches}")
 
+    _zero_launches()
+    windowed_pair_phase(device)
+    windowed_island_phase(device)
+    windowed_family_phase(device)
+    windowed_launches = _launch_counts()
+    print("main_path_launches", json.dumps({"windowed": windowed_launches}), flush=True)
+    if min(windowed_launches.values()) <= 0:
+        raise AssertionError(f"K1/K2 never launched in window jobs: {windowed_launches}")
+
     launches = {
-        k: pair_launches[k] + family_launches[k] + refine_launches[k]
+        k: pair_launches[k] + family_launches[k] + refine_launches[k] + windowed_launches[k]
         for k in pair_launches
     }
     k4_main = next(r for r in banded["k4"] if r["width"] == 512)

@@ -133,7 +133,7 @@ def _align_main(argv: list[str]) -> int:
         (not args.sequential, "runs without -sequential need the concurrent executor", 8),
         (args.tmp_dir, "-tmp_dir needs the concurrent executor's artifact store", 8),
         (args.distributed, "-distributed needs the multi-host runtime", 9),
-        (args.duplications, "-duplications needs align_self", 4),
+        (args.duplications, "-duplications needs align_self", "4b"),
     ]
     for hit, why, item in unported:
         if hit:

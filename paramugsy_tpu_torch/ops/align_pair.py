@@ -6,12 +6,16 @@ on the device, one transfer back) -> chains (host) -> inter-anchor gap
 alignment (native NW; long segments on the device wavefront kernels) ->
 delta entries.
 
-The host helpers (config, chains, entry assembly, post-filters) are
-copied from the reference, whose module imports JAX.  Sequences longer
-than ``cfg.window`` need the windowed path, which is not ported yet.
+Sequences longer than ``cfg.window`` are cut into a grid of overlapping
+window pairs that run through `align_pairs_batch`, and the pieces are
+stitched back into one entry list (`_align_pair_windowed`).
+
+The host helpers (config, chains, entry assembly, windows, post-filters)
+are copied from the reference, whose module imports JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 from bisect import bisect_left
 from dataclasses import dataclass, field
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 from paramugsy_tpu_torch.coords.range import Range
-from paramugsy_tpu_torch.formats.delta import DeltaEntry
+from paramugsy_tpu_torch.formats.delta import DeltaEntry, trim_entry_left
+from paramugsy_tpu_torch.lcb.merge import _fuse_pair
 from paramugsy_tpu_torch.ops import engines
 from paramugsy_tpu_torch.ops.chaining import chain_clusters
 from paramugsy_tpu_torch.ops.encode import (
@@ -29,7 +34,7 @@ from paramugsy_tpu_torch.ops.encode import (
     revcomp_codes_np,
     upload_codes,
 )
-from paramugsy_tpu_torch.ops.extend import Scoring, align_segments_spans
+from paramugsy_tpu_torch.ops.extend import Scoring, align_segments, align_segments_spans
 from paramugsy_tpu_torch.ops.seeding import (
     auto_sample_shift,
     seed_cluster_both_packed,
@@ -433,14 +438,283 @@ def align_pair(
     query_np = query_seq if isinstance(query_seq, np.ndarray) else encode(query_seq)
     n_q = len(query_np)
     if max(len(ref_np), n_q) > cfg.window:
-        raise NotImplementedError(
-            f"sequences longer than cfg.window={cfg.window} need the windowed "
-            "path, not ported yet (ROADMAP queue A, item 4)"
+        return _align_pair_windowed(
+            ref_np, query_np, ref_name, query_name, cfg, device_cache, device=device
         )
     ref_d = device_codes(ref_np, device, device_cache, ref_name)
     query_d = device_codes(query_np, device, device_cache, query_name)
     chains = _chain_seeds_all(ref_d, query_d, n_q, cfg)
     return _finish_pair(chains, ref_np, query_np, ref_name, query_name, cfg, device)
+
+
+def align_pairs_batch(
+    jobs: list[tuple],
+    cfg: AlignConfig | None = None,
+    device_cache: dict | None = None,
+    device: str | torch.device | None = None,
+) -> list[list[DeltaEntry]]:
+    """Align many (ref_seq, query_seq, ref_name, query_name) jobs on
+    `device`, one `align_pair` each.
+
+    The reference seeds each bucket group of jobs in one vmapped call; a
+    row gives the same seeds either way, so the entries are the same.
+    The grouped form waits for a cell where it moves the wall (ROADMAP
+    queue B)."""
+    device = resolve_device(device)
+    return [
+        align_pair(r, q, rn, qn, cfg, device_cache, device) for r, q, rn, qn in jobs
+    ]
+
+
+def _windows(n: int, cfg: AlignConfig):
+    """(win_start, win_end, core_start, core_end) tiles over [0, n).
+
+    Cores tile the sequence exactly; each window extends overlap/2 beyond
+    its core on both sides so matches near core boundaries are seen whole
+    by at least one window.
+    """
+    step = cfg.window - cfg.window_overlap
+    assert step > 0, "window_overlap must be smaller than window"
+    half = cfg.window_overlap // 2
+    out = []
+    i = 0
+    while i * step < n:
+        c0, c1 = i * step, min((i + 1) * step, n)
+        out.append((max(0, c0 - half), min(n, c1 + half), c0, c1))
+        i += 1
+    return out
+
+
+def _diag_break(a: DeltaEntry, b: DeltaEntry) -> int:
+    """Diagonal drift between a's end junction and b's start junction
+    (forward: q - r constant along an ungapped alignment; reverse:
+    q + r constant)."""
+    if a.query_range.is_forward:
+        return abs(
+            (b.query_range.start - b.ref_range.start)
+            - (a.query_range.end - a.ref_range.end)
+        )
+    return abs(
+        (b.query_range.start + b.ref_range.start)
+        - (a.query_range.end + a.ref_range.end)
+    )
+
+
+def _try_fuse_pieces(
+    a: DeltaEntry,
+    b: DeltaEntry,
+    ref_np: np.ndarray,
+    query_np: np.ndarray,
+    cfg: AlignConfig,
+    *,
+    device: torch.device,
+) -> DeltaEntry | None:
+    """Fuse two collinear window pieces (a before b on the ref axis).
+
+    Overlapping spans are de-overlapped by trimming b's prefix in column
+    space; the remaining junction gap (<= break_len) is aligned on
+    `device`'s engines and concatenated.  Returns the fused entry, or None
+    when the pieces are not two halves of one alignment.
+    """
+    if a.query_range.is_forward != b.query_range.is_forward:
+        return None
+    if _diag_break(a, b) > cfg.break_len:
+        return None
+    forward = a.query_range.is_forward
+    gap_r = b.ref_range.start - a.ref_range.end - 1
+    if gap_r < -2 * cfg.window_overlap or gap_r > cfg.break_len:
+        return None
+    if gap_r < 0:
+        b = trim_entry_left(b, "ref", -gap_r)
+        if b is None:
+            return a  # b contained in a's ref span
+    if forward:
+        gap_q = b.query_range.start - a.query_range.end - 1
+    else:
+        gap_q = a.query_range.end - b.query_range.start - 1
+    if gap_q < -2 * cfg.window_overlap:
+        return None
+    if gap_q < 0:
+        b = trim_entry_left(b, "query", -gap_q)
+        if b is None:
+            return a
+    gap_r = b.ref_range.start - a.ref_range.end - 1
+    if forward:
+        gap_q = b.query_range.start - a.query_range.end - 1
+    else:
+        gap_q = a.query_range.end - b.query_range.start - 1
+    if not (0 <= gap_r <= cfg.break_len and 0 <= gap_q <= cfg.break_len):
+        return None
+    r_seg = ref_np[a.ref_range.end : a.ref_range.end + gap_r]
+    if forward:
+        q_seg = query_np[a.query_range.end : a.query_range.end + gap_q]
+    else:
+        q_seg = revcomp_codes_np(
+            query_np[b.query_range.start : b.query_range.start + gap_q]
+        )
+    rg, qg, ncols = align_segments([(r_seg, q_seg)], cfg.scoring, device=device)[0]
+    return _fuse_pair(a, b, rg, qg, ncols)
+
+
+def _fuse_window_pieces(
+    entries: list[DeltaEntry],
+    ref_np: np.ndarray,
+    query_np: np.ndarray,
+    cfg: AlignConfig,
+    *,
+    device: torch.device,
+) -> list[DeltaEntry]:
+    """Stitch alignments that were split at window boundaries: a sweep in
+    ref order per orientation fuses each run of collinear pieces back into
+    one delta entry.  Only piece pairs that overlap on an axis, or whose
+    junction lies within the overlap of a core boundary, are candidates
+    (interior near-misses that the unwindowed path keeps apart stay
+    apart)."""
+    step = cfg.window - cfg.window_overlap
+    half = cfg.window_overlap  # junction-to-boundary slack
+
+    def near_boundary(pos: int) -> bool:
+        r = pos % step
+        return r <= half or r >= step - half
+
+    by_orient: dict[bool, list[DeltaEntry]] = {True: [], False: []}
+    for e in entries:
+        by_orient[e.query_range.is_forward].append(e)
+    out: list[DeltaEntry] = []
+    for group in by_orient.values():
+        group.sort(key=lambda e: (e.ref_range.abs().start, e.ref_range.abs().end))
+        cur: DeltaEntry | None = None
+        for e in group:
+            if cur is None:
+                cur = e
+                continue
+            overlaps = (
+                e.ref_range.start <= cur.ref_range.end
+                or (
+                    e.query_range.abs().start <= cur.query_range.abs().end
+                    and cur.query_range.abs().start <= e.query_range.abs().end
+                )
+            )
+            fused = (
+                _try_fuse_pieces(cur, e, ref_np, query_np, cfg, device=device)
+                if overlaps or near_boundary(cur.ref_range.end)
+                else None
+            )
+            if fused is None:
+                out.append(cur)
+                cur = e
+            else:
+                cur = fused
+        if cur is not None:
+            out.append(cur)
+    return out
+
+
+def window_pair_jobs(
+    ref_np: np.ndarray,
+    query_np: np.ndarray,
+    ref_name: str,
+    query_name: str,
+    cfg: AlignConfig,
+) -> tuple[list[tuple], list[tuple]]:
+    """(jobs, meta) for the window-pair grid of one long pair.
+
+    Each job is an ordinary (ref_slice, query_slice, name, name) pairwise
+    job no longer than ``cfg.window``; ``assemble_windowed`` turns the
+    per-job results back into one entry list."""
+    r_wins = _windows(len(ref_np), cfg)
+    q_wins = _windows(len(query_np), cfg)
+    jobs: list[tuple] = []
+    meta: list[tuple] = []
+    for rw0, rw1, rc0, rc1 in r_wins:
+        for qw0, qw1, qc0, qc1 in q_wins:
+            jobs.append(
+                (
+                    ref_np[rw0:rw1], query_np[qw0:qw1],
+                    f"{ref_name}@w{rw0}", f"{query_name}@w{qw0}",
+                )
+            )
+            meta.append((rw0, rc0, rc1, qw0, qc0, qc1))
+    return jobs, meta
+
+
+def assemble_windowed(
+    per_job: list[list[DeltaEntry]],
+    meta: list[tuple],
+    ref_np: np.ndarray,
+    query_np: np.ndarray,
+    ref_name: str,
+    query_name: str,
+    cfg: AlignConfig,
+    *,
+    device: torch.device,
+) -> list[DeltaEntry]:
+    """Window-pair results -> one pair's entries (midpoint dedup + fuse).
+
+    An entry is kept iff both its midpoints fall in the window pair's
+    cores, so every locus is reported by exactly one window pair; pieces
+    of one alignment cut at window boundaries are stitched back into
+    single entries by `_fuse_window_pieces`.  The post-filter runs here,
+    once, on the whole list."""
+    n_r, n_q = len(ref_np), len(query_np)
+    entries: list[DeltaEntry] = []
+    for (rw0, rc0, rc1, qw0, qc0, qc1), got in zip(meta, per_job):
+        for e in got:
+            rm = rw0 + (e.ref_range.abs().start + e.ref_range.abs().end) // 2
+            qm = qw0 + (e.query_range.abs().start + e.query_range.abs().end) // 2
+            # cores are 0-based [c0, c1); midpoints are 1-indexed
+            if not (rc0 < rm <= rc1 and qc0 < qm <= qc1):
+                continue
+            entries.append(
+                dataclasses.replace(
+                    e,
+                    ref_name=ref_name,
+                    query_name=query_name,
+                    ref_len=n_r,
+                    query_len=n_q,
+                    ref_range=Range(
+                        e.ref_range.start + rw0, e.ref_range.end + rw0
+                    ),
+                    query_range=Range(
+                        e.query_range.start + qw0, e.query_range.end + qw0
+                    ),
+                )
+            )
+    entries = _fuse_window_pieces(entries, ref_np, query_np, cfg, device=device)
+    entries.sort(key=lambda e: (e.ref_range.abs().start, e.ref_range.abs().end))
+    if cfg.post_filter == "one_to_one":
+        entries = filter_one_to_one(entries)
+    elif cfg.post_filter == "colinear":
+        entries = filter_colinear(entries)
+    return entries
+
+
+def windowed_sub_config(cfg: AlignConfig) -> AlignConfig:
+    """Config for window sub-jobs: never recurse, never post-filter
+    (global filters need the full entry set)."""
+    return dataclasses.replace(cfg, window=1 << 62, post_filter=None)
+
+
+def _align_pair_windowed(
+    ref_np: np.ndarray,
+    query_np: np.ndarray,
+    ref_name: str,
+    query_name: str,
+    cfg: AlignConfig,
+    device_cache: dict | None = None,
+    *,
+    device: torch.device,
+) -> list[DeltaEntry]:
+    """Sequence-axis decomposition for contigs beyond the seeding window:
+    the window-pair grid runs through `align_pairs_batch`.  Window slices
+    are keyed by their offset, so each uploads once although it takes part
+    in many window pairs."""
+    cache = device_cache if device_cache is not None else {}
+    jobs, meta = window_pair_jobs(ref_np, query_np, ref_name, query_name, cfg)
+    per_job = align_pairs_batch(jobs, windowed_sub_config(cfg), cache, device)
+    return assemble_windowed(
+        per_job, meta, ref_np, query_np, ref_name, query_name, cfg, device=device
+    )
 
 
 def _wis_filter(es: list[DeltaEntry], key) -> list[DeltaEntry]:

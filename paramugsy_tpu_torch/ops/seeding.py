@@ -208,8 +208,9 @@ def find_seeds_both(
     qpos_c = rpos_c - (key2 & (OFF * 2 - 1)) + OFF  # garbage when masked
     cidx = arange(n)
 
-    prev_mask = torch.roll(mask_c, 1)
-    prev_mask[0] = False
+    # Masked, not assigned: storing a Python scalar into a CUDA tensor
+    # waits for the host.
+    prev_mask = torch.roll(mask_c, 1) & (cidx > 0)
     # Same-diagonal runs merge across ref steps of 1..merge_gap+1.
     dr_prev = rpos_c - torch.roll(rpos_c, 1)
     run_start = mask_c & (
@@ -297,8 +298,10 @@ def seed_cluster_both_packed(
     m_o = m_eff if m_out is None else min(m_out, m_eff)
     c_o = c_eff if c_out is None else min(c_out, c_eff)
     dev = ref_codes.device
+    # Filled on the device, not copied from the host: a host-to-device copy
+    # would wait for the work already queued.
     parts = [
-        torch.tensor([m_o, c_o, m_eff], dtype=torch.int64, device=dev),
+        *(torch.full((1,), v, dtype=torch.int64, device=dev) for v in (m_o, c_o, m_eff)),
         seeds.n_raw[None],
         seeds.n_runs[None],
         seeds.samp_over[None],

@@ -10,9 +10,10 @@ explicit ``device``; one `device_cache` of padded genome codes serves all
 pairs of a run.
 
 The host code is copied from the reference, whose module imports JAX
-through its aligner.  Not ported yet: `duplication_blocks` (needs
-`align_self`, ROADMAP queue A item 4) and `genome_pair_deltas_batch`
-(needs `align_pairs_batch`, the concurrent executor's path, item 8).
+through its aligner.  `genome_pair_deltas_batch` (a chunk of genome
+pairs) is the concurrent executor's task; the executor is not ported yet
+(ROADMAP queue A, item 8).  Not ported yet: `duplication_blocks` (needs
+`align_self`, item 4b).
 """
 from __future__ import annotations
 
@@ -125,6 +126,19 @@ def genome_pair_deltas(
                 align_pair(ra, rb, ra_name, rb_name, cfg, device_cache, device=device)
             )
     return out
+
+
+def genome_pair_deltas_batch(
+    genome_pairs: list[tuple[Genome, Genome]],
+    cfg: AlignConfig,
+    device_cache: dict | None = None,
+    *,
+    device: torch.device,
+) -> list[list[DeltaEntry]]:
+    """Deltas for a chunk of genome pairs (the concurrent executor's task),
+    one `genome_pair_deltas` each: the reference's batched seeding gives
+    the same entries."""
+    return [genome_pair_deltas(a, b, cfg, device_cache, device=device) for a, b in genome_pairs]
 
 
 def fake_mugsy_blocks(g: Genome) -> list[MafBlock]:
@@ -271,7 +285,7 @@ def gather_dup_blocks(genomes: list[Genome], cfg: PipelineConfig) -> list[MafBlo
     if cfg.duplications:
         raise NotImplementedError(
             "duplication detection needs align_self, not ported yet "
-            "(ROADMAP queue A, item 4); pass precomputed MAFs in dup_list"
+            "(ROADMAP queue A, item 4b); pass precomputed MAFs in dup_list"
         )
     dups: list[MafBlock] = []
     for path in cfg.dup_list:

@@ -141,11 +141,17 @@ def test_device_cache_converted_from_reference():
     assert cache[("r.c", len(ref))].dtype == torch.int8
 
 
-def test_config_conversion_and_unported_window_path():
-    cfg = ref_ap.AlignConfig(break_len=777, post_filter="colinear", window=1 << 14)
+def test_config_conversion_and_windowed_path_equals_reference():
+    """A converted config with a shrunk window takes the windowed path in
+    both packages (3 x 3 window pairs) and gives the same entries."""
+    cfg = ref_ap.AlignConfig(
+        break_len=777, post_filter="colinear", window=1 << 14, window_overlap=1 << 12
+    )
     port_cfg = convert.align_config(cfg)
     assert dataclasses.asdict(port_cfg) == dataclasses.asdict(cfg)
     assert dataclasses.asdict(port_ap.AlignConfig()) == dataclasses.asdict(ref_ap.AlignConfig())
-    seq = np.zeros(20_000, np.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_ap.align_pair(seq, seq, cfg=port_cfg, device="cpu")
+    ref, q = build_pair(np.random.default_rng(6), 30_000)
+    port_engines.reset_counts()
+    want, got = _both(ref, q, cfg)
+    assert want and _key(got) == _key(want)
+    assert port_engines.COUNTS["seedcluster-cpu"] == 9

@@ -1,8 +1,8 @@
 """The port's nucmer CLI against the reference's, and the port's import
 boundary: no module of paramugsy_tpu_torch imports JAX or the JAX package
-(paramugsy_tpu), neither on import nor while running ``nucmer`` and
-``align -sequential -refine``, and no import statement in its sources
-names them."""
+(paramugsy_tpu), neither on import nor while running ``nucmer``, a
+windowed ``align_pair`` and ``align -sequential -refine``, and no import
+statement in its sources names them."""
 import io
 import os
 import subprocess
@@ -150,6 +150,15 @@ except SystemExit as e:
     assert e.code == 0, e.code
 assert "jax" not in sys.modules, "the nucmer CLI pulled in jax"
 assert not reference_modules(), ("nucmer", reference_modules())
+# The windowed pair path (a shrunk window: 3 x 3 window pairs).
+import numpy as np
+from paramugsy_tpu_torch.ops.align_pair import AlignConfig, align_pair
+g = np.random.default_rng(1).integers(0, 4, 30000).astype(np.int8)
+wcfg = AlignConfig(window=1 << 14, window_overlap=1 << 12)
+windowed = align_pair(g, g.copy(), "a", "b", wcfg, device="cpu")
+assert len(windowed) == 1 and windowed[0].ref_range.end == 30000, windowed
+assert "jax" not in sys.modules, "the windowed path pulled in jax"
+assert not reference_modules(), ("windowed", reference_modules())
 # The multi-genome path with refinement and bridging: count the fused
 # neighbours (bridge_adjacent) and the long refine segments.
 import paramugsy_tpu_torch.lcb.merge as merge
