@@ -29,10 +29,14 @@ result line:
    sequences, a pair whose lengths do not fit) at W = 64 and 512,
    bit-identical to the plain version.
 2b. K3 (``banded_dp``, one pair) and K4 (``banded_dp_batch``) against
-   ``banded_dp_plain``: one ~8 kb pair at W = 512 and eight pairs of
-   2-8 kb at W = 64, 256, 512, 1024, 4096 and 32768 (the widest band
-   whose row fits shared memory), one pair one base inside the band
-   edge; dirs buffers must be equal.  Then their path, the
+   ``banded_dp_plain``: the edge batch (``banded_edge_pairs``) at every
+   width 32 ... 32768 under two scorings (and a gap past the NEG margin
+   refused with no launch counted), eight 0.6-1.3 kb pairs at each
+   width not timed, then the timed shapes, one ~8 kb pair at W = 512 and
+   eight pairs of 2-8 kb at W = 64, 256, 512, 1024, 4096 and 32768 (the
+   widest band), one pair one base inside the band edge; dirs buffers
+   must be equal.  Times are also given in us per row beside the one-SM
+   bound (a pair's rows are sequential).  Then their path, the
    entry points ``banded_align`` and ``banded_align_batch`` on the same
    pairs, with the counts zeroed before and read after; every triple must
    equal the native banded engine at the same width.
@@ -69,10 +73,11 @@ entry points, 5, 6, and 7-8 together) and read after it.  The script
 imports only the port (``paramugsy_tpu_torch``), never JAX or the JAX
 package directly.  Without
 a CUDA device it exits 2.  ``python3 chip_smoke.py --wavefront`` runs
-phases 1 and 2a only (a quick check after an edit of K1 or K2); ``--profile``
-runs phase 1 and traced runs of phases 6, 5, 7 and 8 (device time per
-kernel, busy share).
-Neither prints the result line.
+phases 1 and 2a only (a quick check after an edit of K1 or K2);
+``--banded`` runs phases 1 and 2b only (after an edit of K3/K4);
+``--profile`` runs phase 1 and traced runs of
+phases 6, 5, 7 and 8 (device time per kernel, busy share).
+None of them prints the result line.
 
 Each kernel's ``bound_ms`` in the ``kernels`` line is the larger of its
 bytes (inputs read once, output written once; for K2 only the distinct
@@ -168,6 +173,10 @@ WINDOWED_FAMILY_MAF_SHA256 = (
 )
 WINDOWED_FAMILY_SEEDCLUSTER = 54  # 6 pairs x 9 window pairs
 BANDED_WIDTHS = (64, 256, 512, 1024, 4096, 32768)
+BANDED_ALL_WIDTHS = tuple(32 << n for n in range(11))
+# Scores under which a mismatch costs more than two gaps, so that an up move
+# followed by a left move can beat the diag move (K3/K4's edge checks).
+GAPPY_SCORES = {"match": 1, "mismatch": -9, "gap": -2}
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
@@ -544,18 +553,57 @@ def banded_batch(rng, width: int) -> list:
     return pairs
 
 
+def banded_edge_pairs() -> list:
+    """Seven pairs for one K3/K4 launch of 128 rows (padded to eight with an
+    empty pair by the caller): unequal lengths, empty sides, N codes, a pair
+    at the W 128 band edge, one that fills every row, and one on which the
+    reference's single-pair `banded_align` raises IndexError (a 100 bp, b =
+    a less 38 bases: rows reach b_len + W/2 + 2).  tests/test_torch_banded.py
+    holds K4's plain version against the reference on them."""
+    rng = np.random.default_rng(5)
+
+    def pair(la, n_del, sub_rate=0.03, n_rate=0.0):
+        a = rng.integers(0, 4, size=la).astype(np.int8)
+        a[rng.random(la) < n_rate] = 4
+        b = np.delete(a, rng.choice(la, n_del, replace=False)) if la else a.copy()
+        m = rng.random(len(b)) < sub_rate
+        b[m] = ((b[m] + 1) % 4).astype(np.int8)
+        return a, b
+
+    return [
+        pair(100, 6, n_rate=0.05),
+        (np.zeros(0, np.int8), rng.integers(0, 4, 50).astype(np.int8)),
+        (rng.integers(0, 4, 40).astype(np.int8), np.zeros(0, np.int8)),
+        pair(120, 63),  # length difference at the W 128 band edge
+        (rng.integers(0, 4, 20).astype(np.int8), rng.integers(0, 4, 80).astype(np.int8)),
+        pair(100, 38, sub_rate=0.0),  # the reference's IndexError pair
+        pair(128, 10, sub_rate=0.1),
+    ]
+
+
 def _dirs_err(got, want) -> int:
     import torch
 
     return int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
 
 
+def _per_row(row: dict, rows: int, width: int) -> dict:
+    """us per row beside the one-SM bound: a pair's rows are sequential, so
+    one pair has one SM's 128 integer lanes at 1.98 GHz."""
+    row["us_per_row"] = row["ms"] * 1e3 / rows
+    row["one_sm_bound_us_per_row"] = OPS_PER_CELL * width / (INT32_OPS_PER_S / 132) * 1e6
+    return row
+
+
 def check_banded(device, reps: int) -> dict:
     """K3 and K4 against banded_dp_plain on the card (direct wrapper
-    calls), then their path: the entry points banded_align and
-    banded_align_batch on the same pairs, with the launch counts zeroed
-    before and read after.  Every triple must equal the native banded
-    engine at the same width."""
+    calls): the edge batch (`banded_edge_pairs`) at every width 32 ...
+    32768 under the default scores and under GAPPY_SCORES, a short launch
+    of eight pairs at each width that is not timed, then the timed shapes
+    (K3 one 8 kb pair at W 512, K4 at BANDED_WIDTHS).  Then their path:
+    the entry points banded_align and banded_align_batch on the timed
+    pairs, with the launch counts zeroed before and read after.  Every
+    triple must equal the native banded engine at the same width."""
     import torch
 
     from paramugsy_tpu_torch.ops import banded as bd
@@ -565,6 +613,35 @@ def check_banded(device, reps: int) -> dict:
     k3_pair = kernel_pairs(rng, 1, 8192, 100)[0]
     batches = {w: banded_batch(rng, w) for w in BANDED_WIDTHS}
 
+    edge = banded_edge_pairs() + [(np.zeros(0, np.int8),) * 2]
+    A, B, al, bl = bd.pack_pairs(edge, device)
+    for width in BANDED_ALL_WIDTHS:
+        for scores in ({}, GAPPY_SCORES):
+            kw = dict(rows=128, width=width, **scores)
+            if not torch.equal(bd.banded_dp_batch(A, B, al, bl, **kw), bd.banded_dp_plain(A, B, al, bl, **kw)):
+                raise AssertionError(f"K4 differs from plain on the edge batch at W={width} {scores}")
+    # Past the NEG margin the card refuses, before any launch.
+    launched = bd.banded_dp_batch.launches
+    try:
+        bd.banded_dp_batch(A, B, al, bl, rows=128, width=256, gap=-(10**6))
+        raise AssertionError("K4 accepted a gap past the NEG margin")
+    except ValueError:
+        if bd.banded_dp_batch.launches != launched:
+            raise AssertionError("K4 counted a refused launch") from None
+    short = {}
+    for width in BANDED_ALL_WIDTHS:
+        if width in BANDED_WIDTHS:
+            continue
+        pairs = [kernel_pairs(rng, 1, 600 + 100 * p, min(width // 4, 300))[0] for p in range(8)]
+        A, B, al, bl = bd.pack_pairs(pairs, device)
+        kw = dict(rows=1337, width=width)  # ends inside a 16-row block
+        dirs = bd.banded_dp_batch(A, B, al, bl, **kw)
+        plain = bd.banded_dp_plain(A, B, al, bl, **kw)
+        if not torch.equal(dirs, plain):
+            raise AssertionError(f"K4 differs from plain at W={width} (short launch)")
+        short[width] = _dirs_err(dirs, plain)
+    row = {"edge_widths": list(BANDED_ALL_WIDTHS), "short": short}
+
     a, b = k3_pair
     A, B, al, bl = bd.pack_pairs([k3_pair], device)
     kw = dict(rows=bd.chunk_rows([len(a)], 128), width=512)
@@ -573,15 +650,13 @@ def check_banded(device, reps: int) -> dict:
     if not torch.equal(dirs, plain[:, 0]):
         raise AssertionError("K3 differs from its plain version at W=512")
     k3_bound = bound(A.numel() + B.numel() + 8 + dirs.numel(), OPS_PER_CELL * dirs.numel())
-    row = {
-        "k3": {
-            "length": len(a), "width": 512, "max_abs_err": _dirs_err(dirs, plain[:, 0]),
-            "ms": _cuda_ms(lambda: bd.banded_dp(A, B, al, bl, **kw), reps),
-            "plain_ms": k3_plain_ms,
-            "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-        },
-        "k4": [],
-    }
+    ms = _cuda_ms(lambda: bd.banded_dp(A, B, al, bl, **kw), reps)
+    row["k3"] = _per_row({
+        "length": len(a), "rows": kw["rows"], "width": 512,
+        "max_abs_err": _dirs_err(dirs, plain[:, 0]), "ms": ms, "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+    }, kw["rows"], 512)
+    row["k4"] = []
     for width, pairs in batches.items():
         A, B, al, bl = bd.pack_pairs(pairs, device)
         kw = dict(rows=bd.chunk_rows([len(x) for x, _ in pairs], 128), width=width)
@@ -593,13 +668,12 @@ def check_banded(device, reps: int) -> dict:
             A.numel() + B.numel() + 8 * len(pairs) + dirs.numel(),
             OPS_PER_CELL * dirs.numel(),
         )
-        row["k4"].append({
+        ms = _cuda_ms(lambda: bd.banded_dp_batch(A, B, al, bl, **kw), reps)
+        row["k4"].append(_per_row({
             "pairs": len(pairs), "rows": kw["rows"], "width": width,
-            "max_abs_err": _dirs_err(dirs, plain),
-            "ms": _cuda_ms(lambda: bd.banded_dp_batch(A, B, al, bl, **kw), reps),
-            "plain_ms": plain_ms,
+            "max_abs_err": _dirs_err(dirs, plain), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
-        })
+        }, kw["rows"], width))
 
     # The path: the two entry points, counted.
     bd.banded_dp.launches = 0
@@ -1087,6 +1161,9 @@ def main(argv: list[str]) -> int:
         print_sass_mix()
         check_batch1(device)
         return 0
+    if argv == ["--banded"]:
+        check_banded(device, reps=3)
+        return 0
     if argv == ["--profile"]:
         profile_realistic()
         profile_family(windowed=False)
@@ -1094,7 +1171,7 @@ def main(argv: list[str]) -> int:
         profile_family(windowed=True)
         return 0
     if argv:
-        raise SystemExit(f"usage: {sys.argv[0]} [--wavefront | --profile]")
+        raise SystemExit(f"usage: {sys.argv[0]} [--wavefront | --banded | --profile]")
 
     # Phase 2: kernels against their plain versions, at the bench shape
     # and at every band width up to one past the register kernel's.
@@ -1204,6 +1281,7 @@ def main(argv: list[str]) -> int:
             "bound_ms": banded["k3"]["bound_ms"],
             "bound_by": banded["k3"]["bound_by"],
             "library_ms": None,
+            "us_per_row": banded["k3"]["us_per_row"],
         },
         {
             "name": "banded_dp_batch",
@@ -1217,6 +1295,7 @@ def main(argv: list[str]) -> int:
             "bound_ms": k4_main["bound_ms"],
             "bound_by": k4_main["bound_by"],
             "library_ms": None,
+            "us_per_row": k4_main["us_per_row"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

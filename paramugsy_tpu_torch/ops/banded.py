@@ -20,9 +20,16 @@ lane w reads b[i + w - W/2 - 1] and a[i - 1], code 4 outside [0, b_len)
 and [0, a_len).  That equals `banded_align_batch`'s clamped padding and
 `banded_align`'s padding wherever the latter does not raise, so whole
 buffers, rows past a_len included, are bit-identical to the reference's.
+The CUDA kernel reads them from copies of a and b padded with code 4
+(`pad_geometry`), so it needs no bounds check.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises.  The two paths differ in what they accept:
+the CUDA kernel needs NEG to stay below every score (`within_neg_margin`),
+so on the card the wrappers refuse, before any launch, scores and sizes
+with |gap| * (rows + W) + |match| + |mismatch| >= 10^8 (a gap of -10^6 at
+128 rows, say), which the plain version and the first CUDA kernel
+computed.  Under the default scores the margin holds up to 25 million rows.
 """
 from __future__ import annotations
 
@@ -30,15 +37,15 @@ import numpy as np
 import torch
 
 from paramugsy_tpu_torch.coords.range import Range
-from paramugsy_tpu_torch.ops.wavefront import _launch_stream, _ptr, pack_pairs
+from paramugsy_tpu_torch.ops.wavefront import _launch_stream, _ptr, pack_pairs, pad_rows
 
 NEG = -(10**8)
 DIAG, UP, LEFT = 0, 1, 2
 PAD = 4
 BATCH = 8
 MIN_WIDTH = 32
-# The previous dp row lives in the kernel's shared memory (int32 per lane):
-# 32768 lanes take 128 KiB of the 227 KiB a block may use; 65536 would not fit.
+# The kernel keeps at most 32 lanes of the dp row (and 32 scan operands) in
+# each thread's registers, with at most 1024 threads a block.
 MAX_WIDTH = 1 << 15
 # Rows of characters compared per vectorized step of the plain version.
 _PLAIN_ROWS = 64
@@ -61,8 +68,8 @@ def _check(a, b, a_len, b_len, rows: int, width: int) -> int:
     if width & (width - 1) or not MIN_WIDTH <= width <= MAX_WIDTH:
         raise ValueError(
             f"width must be a power of two in [{MIN_WIDTH}, {MAX_WIDTH}]: the "
-            f"kernel keeps one int32 row of the band in shared memory, and "
-            f"{2 * MAX_WIDTH} lanes do not fit a block's 227 KiB"
+            f"kernel keeps the band's row in registers, 32 lanes to each of at "
+            f"most 1024 threads"
         )
     return batch
 
@@ -127,19 +134,47 @@ def banded_dp_plain(
     return dirs
 
 
+def pad_geometry(rows: int, width: int) -> tuple[int, int, int]:
+    """(a_stride, b_front, b_stride) of the padded rows the CUDA kernel
+    reads.  Each thread loads, once per 16 rows, 4-byte words of a from
+    byte i0 and of b from byte b_front - W/2 + i0 + w0 (rounded down to a
+    word), the next block's as well: a up to byte rows16 + 15 (rows16 =
+    rows rounded up to 16), b up to byte rows16 + W + 37.  Multiples of
+    16, so every word is aligned."""
+    rows16 = -(-rows // 16) * 16
+    return rows16 + 16, width // 2 + 16, rows16 + width + 48
+
+
+def within_neg_margin(rows: int, width: int, match: int, mismatch: int, gap: int) -> bool:
+    """Whether NEG stays below every score the CUDA kernel computes: its
+    first pass leaves the lanes outside the cells unmasked, which is exact
+    only while |gap| * (rows + W) + |match| + |mismatch| < -NEG
+    (csrc/banded.cu's header)."""
+    return abs(gap) * (rows + width) + abs(match) + abs(mismatch) < -NEG
+
+
 def _launch(a, b, a_len, b_len, rows, width, match, mismatch, gap) -> torch.Tensor:
     from paramugsy_tpu_torch.ops import _kernels
 
+    if not within_neg_margin(rows, width, match, mismatch, gap):
+        raise ValueError(
+            f"rows {rows}, width {width} and scores ({match}, {mismatch}, {gap}) "
+            f"reach NEG = {NEG}: the kernel needs |gap| * (rows + width) + "
+            f"|match| + |mismatch| < {-NEG}"
+        )
     batch = a.shape[0]
-    a = a.contiguous()
-    b = b.contiguous()
-    a_len = a_len.contiguous()
+    a_stride, b_front, b_stride = pad_geometry(rows, width)
+    # The padded copies (a few small device ops per launch of many
+    # sequential rows) keep the wrapper's interface: rows of any width,
+    # contents past each length ignored.
+    a = pad_rows(a, a_len, PAD, 0, a_stride)
+    b = pad_rows(b, b_len, PAD, b_front, b_stride)
     b_len = b_len.contiguous()
     dirs = torch.empty((rows, batch, width), dtype=torch.uint8, device=a.device)
     with torch.cuda.device(a.device):
         rc = _kernels.library().pm_banded_dp(
             _ptr(a), _ptr(b), _ptr(a_len), _ptr(b_len),
-            a.shape[1], b.shape[1], rows, width, batch,
+            a_stride, b_stride, rows, width, batch,
             match, mismatch, gap, _ptr(dirs), _launch_stream(a.device),
         )
     if rc != 0:
@@ -175,7 +210,9 @@ def banded_dp(
     """K3: direction codes of one pair, uint8 [rows, W].
 
     a, b: int8 [1, La], [1, Lb] code rows (contents past the lengths are
-    not read); a_len, b_len: int32 [1].
+    not read); a_len, b_len: int32 [1].  On CUDA tensors, rows, width and
+    scores past `within_neg_margin` raise ValueError before any launch; the
+    CPU path has no such limit.
     """
     if a.shape[0] != 1:
         raise ValueError("banded_dp takes one pair; use banded_dp_batch")
