@@ -68,15 +68,32 @@ result line:
    with 1 Mbp windows twice: the MAF must equal the reference's sha256,
    with 54 window pairs seeded per run.
 
+9. The self-alignment path: the ``repeats`` CLI on a 2 Mbp genome with
+   eight planted 5 kb duplications, half inverted (``repeats_genome``),
+   twice (first, warm); delta body and MAF must equal the JAX
+   reference's, with one repeat-seeding dispatch per run.
+9b. The ``repeats`` CLI on a genome of E. coli K-12's length (4,641,652
+   bp, over the 4 Mbp window; ``windowed_self_genome``) twice: two
+   windows aligned with themselves and one window pair per run; the
+   delta body must equal the reference's.
+9c. ``align_self`` with break_len 8192 on a 1 Mbp genome whose four
+   planted copies each hold a random 5 kb island (``self_island_genome``)
+   twice: the entries must equal the reference's, with its 6 long
+   segments per run on K1 and K2.
+10. The realistic fixture through ``align -sequential -duplications``
+   twice: the MAF, its 306 dup blocks included, must equal the
+   reference's sha256.
+
 Launch counters are zeroed before each path (phases 3-4 together, 2b's
-entry points, 5, 6, and 7-8 together) and read after it.  The script
+entry points, 5, 6, 7-8 together and 9-10 together) and read after it.  The script
 imports only the port (``paramugsy_tpu_torch``), never JAX or the JAX
 package directly.  Without
 a CUDA device it exits 2.  ``python3 chip_smoke.py --wavefront`` runs
 phases 1 and 2a only (a quick check after an edit of K1 or K2);
 ``--banded`` runs phases 1 and 2b only (after an edit of K3/K4);
 ``--profile`` runs phase 1 and traced runs of
-phases 6, 5, 7 and 8 (device time per kernel, busy share).
+phases 6, 5, 7, 8, 9, 9b, 9c and 10 (device time per kernel, busy
+share).
 None of them prints the result line.
 
 Each kernel's ``bound_ms`` in the ``kernels`` line is the larger of its
@@ -172,6 +189,45 @@ WINDOWED_FAMILY_MAF_SHA256 = (
     "042339122162e5bfb8269de720986226229924540ff9b95c697bce9837a5533e"
 )
 WINDOWED_FAMILY_SEEDCLUSTER = 54  # 6 pairs x 9 window pairs
+
+# The self-alignment path (align_self), digests computed as above at
+# commit edf32b7: the reference's ``repeats`` CLI on `repeats_genome`
+# (phase 9; delta body and MAF) and on `windowed_self_genome` (9b, over
+# the 4 Mbp window), its align_self + DeltaWriter on `self_island_genome`
+# with break_len 8192 (9c), and its ``align -sequential -duplications`` on
+# the realistic fixture (10).  The port counts one repeat-seeding dispatch
+# per self alignment (a contig or a window); the reference counts none,
+# and its pair-seeding counts are given beside.
+REPEATS_BP = 2_000_000
+REPEATS_DELTA_SHA256 = (
+    "c489945a292cd9b10b2b6a8b33c1f6039db3fad1e4f462a008e326a6d589acce"
+)
+REPEATS_MAF_SHA256 = (
+    "bf7074b19bc2ac6aa8dfbe9867badd52d729f3cef6aca34cfdea94c7c681ebaf"
+)
+REPEATS_ENTRIES = 8
+WINDOWED_SELF_BP = 4_641_652  # the length of E. coli K-12 MG1655's chromosome
+WINDOWED_SELF_DELTA_SHA256 = (
+    "344c6d2eda01885a85688325a11e93bb4b369f5d18450dca302cdf33416456f9"
+)
+# Two windows aligned with themselves, one window pair; 4 of the 6
+# planted pairs come out (`windowed_self_genome` says which are lost).
+WINDOWED_SELF_ENGINES = {"repeatcluster": 2, "seedcluster": 1}
+WINDOWED_SELF_ENTRIES = 4
+SELF_ISLAND_BP = 1_000_000
+# The self path seeds unsampled, so its parts split at cfg.break_len
+# itself (the pair path's 2048 becomes 8192 through its sample shift):
+# islands of 5 kb stay inside one chain only under a break_len above that.
+SELF_ISLAND_BREAK_LEN = 8192
+SELF_ISLAND_DELTA_SHA256 = (
+    "7404265b716cb28d267acbcffca3127ca51a8a75b0ba6967a4c94f1653ab0f21"
+)
+SELF_ISLAND_LONG_SEGMENTS = 6  # the reference's native-banded segments per run
+DUPLICATIONS_MAF_SHA256 = (
+    "1fa608aaf2cac93b143d6f95e7488e085a6871dc6c0a761f2ac36bccbf9f228c"
+)
+DUPLICATIONS_ENGINES = {"repeatcluster": 8, "seedcluster": 29}  # 8 contigs
+DUPLICATIONS_DUP_BLOCKS = 306
 BANDED_WIDTHS = (64, 256, 512, 1024, 4096, 32768)
 BANDED_ALL_WIDTHS = tuple(32 << n for n in range(11))
 # Scores under which a mismatch costs more than two gaps, so that an up move
@@ -239,15 +295,10 @@ def family_fastas(directory: str, n: int, count: int, seed: int = 7) -> list[str
 def headline_fastas(directory: str, n: int = HEADLINE_BP) -> tuple[str, str]:
     """Write the bench pair (build_pair, seed 12345, `n` bp) as FASTA."""
     ref, query = build_pair(np.random.default_rng(12345), n)
-    paths = []
-    for name, codes in (("smoke_ref", ref), ("smoke_qry", query)):
-        path = os.path.join(directory, f"{name}.fa")
-        with open(path, "w") as f:
-            f.write(f">{name}.chr\n")
-            f.write(np.frombuffer(b"ACGT", np.uint8)[codes].tobytes().decode())
-            f.write("\n")
-        paths.append(path)
-    return paths[0], paths[1]
+    return tuple(
+        write_fasta(os.path.join(directory, f"{name}.fa"), f"{name}.chr", codes)
+        for name, codes in (("smoke_ref", ref), ("smoke_qry", query))
+    )
 
 
 def windowed_config(directory: str) -> str:
@@ -268,6 +319,88 @@ def island_pair(n: int = HEADLINE_BP, n_islands: int = 4, length: int = 5000):
     for s in np.linspace(n // 10, n - n // 10, n_islands).astype(int):
         query[s : s + length] = rng.integers(0, 4, length)
     return ref, query
+
+
+def plant_copies(g: np.ndarray, plants) -> np.ndarray:
+    """Copy ``g[src:src + length]`` onto ``dst`` for each (src, dst,
+    length, inverted) in order; an inverted copy is the reverse
+    complement."""
+    g = g.copy()
+    for src, dst, length, inverted in plants:
+        piece = g[src : src + length]
+        g[dst : dst + length] = (3 - piece)[::-1] if inverted else piece
+    return g
+
+
+def repeats_genome(n: int = REPEATS_BP) -> np.ndarray:
+    """Phase 9's genome: `n` random bases (seed 31) with eight 5 kb
+    segmental duplications, every other one inverted; sources in the
+    first half, copies in the second."""
+    g = np.random.default_rng(31).integers(0, 4, size=n).astype(np.int8)
+    half = n // 2
+    plants = [
+        (half // 8 * i + 1000, half + half // 8 * i + 3000, 5000, i % 2 == 1)
+        for i in range(8)
+    ]
+    return plant_copies(g, plants)
+
+
+def windowed_self_genome(n: int = WINDOWED_SELF_BP) -> np.ndarray:
+    """Phase 9b's genome, at E. coli K-12 MG1655's length: random bases
+    (seed 32) with 5 kb duplications placed against the default windows
+    (`AlignConfig.window` 4 Mbp, overlap 128 kb: window 0 is [0,
+    4,128,768), window 1 [3,997,696, n), the core split 4,063,232):
+    two pairs inside window 0's core (one inverted), two across the
+    windows (one inverted), one copy straddling the core split, and a
+    pair with both copies inside the overlap.
+
+    The reference reports four of the six: the straddling copy's entry
+    ends one base past the split, so window 0's self call drops it by its
+    midpoint, and the window pair cannot seed it (its source recurs in
+    window 0, so its k-mers are not unique in that window); the pair in
+    the overlap falls outside one core in each self call and recurs in
+    window 0 for the window pair."""
+    g = np.random.default_rng(32).integers(0, 4, size=n).astype(np.int8)
+    plants = [
+        (500_000, 1_500_000, 5000, False),
+        (800_000, 2_500_000, 5000, True),
+        (1_000_000, 4_400_000, 5000, False),
+        (2_000_000, 4_500_000, 5000, True),
+        (3_000_000, 4_060_732, 5000, False),
+        (4_000_000, 4_100_000, 5000, False),
+    ]
+    return plant_copies(g, plants)
+
+
+def self_island_genome(
+    n: int = SELF_ISLAND_BP, n_copies: int = 4, length: int = 20_000,
+    island: int = 5000, seed: int = 33,
+) -> np.ndarray:
+    """Random bases with `n_copies` planted duplications of `length` bp
+    (every other one inverted), each copy's middle `island` bp replaced
+    by random bases: under a break_len over `island`, each leaves one
+    inter-anchor segment of about `island` bp a side."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, size=n).astype(np.int8)
+    step = n // (2 * n_copies)
+    plants = [
+        (step * i + 100, n // 2 + step * i + 200, length, i % 2 == 1)
+        for i in range(n_copies)
+    ]
+    g = plant_copies(g, plants)
+    for _, dst, _, _ in plants:
+        mid = dst + (length - island) // 2
+        g[mid : mid + island] = rng.integers(0, 4, size=island)
+    return g
+
+
+def write_fasta(path: str, name: str, codes: np.ndarray) -> str:
+    """One record of int8 codes as FASTA; returns `path`."""
+    with open(path, "w") as f:
+        f.write(f">{name}\n")
+        f.write(np.frombuffer(b"ACGT", np.uint8)[codes].tobytes().decode())
+        f.write("\n")
+    return path
 
 
 def delta_body(text: str) -> str:
@@ -1006,32 +1139,174 @@ def windowed_family_phase(device) -> dict:
     return row
 
 
+def _repeats_runs(name: str, genome: np.ndarray, device, delta_digest: str,
+                  maf_digest: str | None, entries: int, engines_per_run: dict) -> dict:
+    """The ``repeats`` CLI on `genome` twice (first, warm): per run the
+    wall, the engine counts (each must equal `engines_per_run`, keyed by
+    engine less its device suffix) and the digests of the delta body and,
+    when given, of the MAF."""
+    import torch
+
+    from paramugsy_tpu_torch import cli
+    from paramugsy_tpu_torch.ops import engines
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = write_fasta(os.path.join(tmp, f"{name}.fa"), f"{name}.chr", genome)
+        delta, maf = os.path.join(tmp, "self.delta"), os.path.join(tmp, "self.maf")
+        argv = ["repeats", "-seq", fa, "-out_delta", delta, "-device", device.type]
+        if maf_digest:
+            argv += ["-out_maf", maf]
+        for _ in range(2):
+            before = dict(engines.COUNTS)
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise AssertionError(f"{name}: repeats CLI failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(delta) as f:
+                body = delta_body(f.read())
+            if sha256(body) != delta_digest:
+                raise AssertionError(f"{name}: delta differs from the JAX reference")
+            if maf_digest and file_sha256(maf) != maf_digest:
+                raise AssertionError(f"{name}: MAF differs from the JAX reference")
+            got = sum(1 for line in body.splitlines() if len(line.split()) == 7)
+            used = _engine_delta(before)
+            want = {f"{k}-{device.type}": v for k, v in engines_per_run.items()}
+            if got != entries or any(used.get(k) != v for k, v in want.items()):
+                raise AssertionError(
+                    f"{name}: {got} entries, engines {used}; expected {entries} "
+                    f"and {want}"
+                )
+            runs.append({"wall_s": wall, "engines": used})
+    row = {
+        "bp": len(genome), "entries": entries, "first_s": runs[0]["wall_s"],
+        "warm_s": runs[1]["wall_s"], "engines": runs[1]["engines"],
+    }
+    print(name, json.dumps(row), flush=True)
+    return row
+
+
+def repeats_phase(device) -> dict:
+    """Phase 9: the ``repeats`` CLI on the 2 Mbp `repeats_genome`."""
+    return _repeats_runs(
+        "repeats", repeats_genome(), device, REPEATS_DELTA_SHA256,
+        REPEATS_MAF_SHA256, REPEATS_ENTRIES, {"repeatcluster": 1},
+    )
+
+
+def windowed_self_phase(device) -> dict:
+    """Phase 9b: the ``repeats`` CLI on `windowed_self_genome` (4.64 Mbp,
+    over the 4 Mbp window): two self calls and one window pair."""
+    return _repeats_runs(
+        "windowed_self", windowed_self_genome(), device, WINDOWED_SELF_DELTA_SHA256,
+        None, WINDOWED_SELF_ENTRIES, WINDOWED_SELF_ENGINES,
+    )
+
+
+def self_island_phase(device) -> dict:
+    """Phase 9c: `self_island_genome` through align_self with break_len
+    8192 twice; each run's long segments must run on K1 and K2, as many
+    as the reference sent to its host banded engine."""
+    import torch
+
+    from paramugsy_tpu_torch.cli import delta_text
+    from paramugsy_tpu_torch.ops import engines
+    from paramugsy_tpu_torch.ops.align_pair import AlignConfig, align_self
+
+    g = self_island_genome()
+    cfg = AlignConfig(break_len=SELF_ISLAND_BREAK_LEN)
+    runs = []
+    for _ in range(2):
+        before, launched = dict(engines.COUNTS), _launch_counts()
+        t0 = time.perf_counter()
+        entries = align_self(g, "self_island.chr", cfg, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sha256(delta_body(delta_text(entries))) != SELF_ISLAND_DELTA_SHA256:
+            raise AssertionError("self island: entries differ from the JAX reference")
+        used = _engine_delta(before)
+        launches = {k: v - launched[k] for k, v in _launch_counts().items()}
+        if (
+            used.get("device-wavefront") != SELF_ISLAND_LONG_SEGMENTS
+            or used.get(f"repeatcluster-{device.type}") != 1
+            or min(launches.values()) <= 0
+        ):
+            raise AssertionError(
+                f"self island: {used}, launches {launches}; expected "
+                f"{SELF_ISLAND_LONG_SEGMENTS} long segments on K1/K2"
+            )
+        runs.append({"wall_s": wall, "engines": used, "launches": launches})
+    row = {
+        "bp": len(g), "first_s": runs[0]["wall_s"], "warm_s": runs[1]["wall_s"],
+        "entries": len(entries), "engines": runs[1]["engines"],
+        "launches": runs[1]["launches"],
+    }
+    print("self_island", json.dumps(row), flush=True)
+    return row
+
+
+def duplications_phase(device) -> dict:
+    """Phase 10: the realistic fixture through ``align -sequential
+    -duplications`` twice (first, warm): the MAF must equal the
+    reference's, dup blocks included."""
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "realistic", "*.fa")))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "duplications.maf")
+        argv = [
+            "align", "-sequential", *paths, "-duplications", "-out_maf", out,
+            "-device", device.type,
+        ]
+        runs = _align_runs("duplications", argv, out, DUPLICATIONS_MAF_SHA256)
+        with open(out) as f:
+            dup_blocks = sum(1 for line in f if line.startswith("a ") and "label=dup" in line)
+    want = {f"{k}-{device.type}": v for k, v in DUPLICATIONS_ENGINES.items()}
+    for r in runs:
+        if any(r["engines"].get(k) != v for k, v in want.items()):
+            raise AssertionError(f"duplications: {r['engines']}; expected {want}")
+    if dup_blocks != DUPLICATIONS_DUP_BLOCKS:
+        raise AssertionError(f"duplications: {dup_blocks} dup blocks")
+    row = {"genomes": len(paths), "dup_blocks": dup_blocks, "first": runs[0], "warm": runs[1]}
+    print("duplications", json.dumps(row), flush=True)
+    return row
+
+
 def _profile_cli(name: str, argv: list, out: str, digest_of, digest: str) -> dict:
-    """One CLI run traced: a warm-up run, two untraced runs, then one run
-    under torch.profiler; device time per kernel (sum of CUDA self time)
-    and the busy share of the traced wall.  ``digest_of(out)`` must equal
+    """One CLI run traced (`_profile_run`); ``digest_of(out)`` must equal
     `digest` after the traced run."""
+    from paramugsy_tpu_torch import cli
+
+    def run():
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{name}: CLI failed")
+
+    return _profile_run(name, run, lambda: digest_of(out) == digest)
+
+
+def _profile_run(name: str, run, output_ok) -> dict:
+    """`run()` traced: a warm-up run, two untraced runs, then one run
+    under torch.profiler; device time per kernel (sum of CUDA self time)
+    and the busy share of the traced wall.  ``output_ok()`` must hold
+    after the traced run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from paramugsy_tpu_torch import cli
-
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        if cli.main(argv) != 0:
-            raise AssertionError(f"{name}: CLI failed")
+        run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     _zero_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        if cli.main(argv) != 0:
-            raise AssertionError(f"{name}: CLI failed")
+        run()
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
-    if digest_of(out) != digest:
+    if not output_ok():
         raise AssertionError(f"{name}: output differs from the JAX reference")
     kernels = {}
     for ev in prof.key_averages():
@@ -1102,6 +1377,57 @@ def profile_windowed_pair() -> dict:
         return _profile_cli("windowed_pair", argv, out, digest_of, WINDOWED_DELTA_SHA256)
 
 
+def profile_repeats(windowed: bool) -> dict:
+    """Phase 9's 2 Mbp genome or phase 9b's 4.64 Mbp windowed genome
+    through ``repeats``, traced."""
+    with tempfile.TemporaryDirectory() as tmp:
+        name = "windowed_self" if windowed else "repeats"
+        genome = windowed_self_genome() if windowed else repeats_genome()
+        fa = write_fasta(os.path.join(tmp, f"{name}.fa"), f"{name}.chr", genome)
+        out = os.path.join(tmp, "self.delta")
+        argv = ["repeats", "-seq", fa, "-out_delta", out, "-device", "cuda"]
+
+        def digest_of(path):
+            with open(path) as f:
+                return sha256(delta_body(f.read()))
+
+        return _profile_cli(
+            name, argv, out, digest_of,
+            WINDOWED_SELF_DELTA_SHA256 if windowed else REPEATS_DELTA_SHA256,
+        )
+
+
+def profile_self_island() -> dict:
+    """Phase 9c's align_self run (K1/K2 on its long segments), traced."""
+    from paramugsy_tpu_torch.cli import delta_text
+    from paramugsy_tpu_torch.ops.align_pair import AlignConfig, align_self
+
+    g = self_island_genome()
+    cfg = AlignConfig(break_len=SELF_ISLAND_BREAK_LEN)
+    got = []
+
+    def run():
+        got[:] = align_self(g, "self_island.chr", cfg, device="cuda")
+
+    return _profile_run(
+        "self_island", run,
+        lambda: sha256(delta_body(delta_text(got))) == SELF_ISLAND_DELTA_SHA256,
+    )
+
+
+def profile_duplications() -> dict:
+    """Phase 10, the realistic fixture through ``align -sequential
+    -duplications``, traced."""
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "realistic", "*.fa")))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "duplications.maf")
+        argv = ["align", "-sequential", *paths, "-duplications", "-out_maf", out,
+                "-device", "cuda"]
+        return _profile_cli("duplications", argv, out, file_sha256, DUPLICATIONS_MAF_SHA256)
+
+
 def print_sass_mix() -> None:
     """Per instantiation of K1's register kernel, the SASS instructions of
     the built library per DP cell of one 16-step block (all of the
@@ -1169,6 +1495,10 @@ def main(argv: list[str]) -> int:
         profile_family(windowed=False)
         profile_windowed_pair()
         profile_family(windowed=True)
+        profile_repeats(windowed=False)
+        profile_repeats(windowed=True)
+        profile_self_island()
+        profile_duplications()
         return 0
     if argv:
         raise SystemExit(f"usage: {sys.argv[0]} [--wavefront | --banded | --profile]")
@@ -1231,8 +1561,20 @@ def main(argv: list[str]) -> int:
     if min(windowed_launches.values()) <= 0:
         raise AssertionError(f"K1/K2 never launched in window jobs: {windowed_launches}")
 
+    # The self-alignment path: phases 9, 9b, 9c and 10.
+    _zero_launches()
+    repeats_phase(device)
+    windowed_self_phase(device)
+    self_island_phase(device)
+    duplications_phase(device)
+    self_launches = _launch_counts()
+    print("main_path_launches", json.dumps({"self": self_launches}), flush=True)
+    if min(self_launches.values()) <= 0:
+        raise AssertionError(f"K1/K2 never launched on the self path: {self_launches}")
+
     launches = {
-        k: pair_launches[k] + family_launches[k] + refine_launches[k] + windowed_launches[k]
+        k: pair_launches[k] + family_launches[k] + refine_launches[k]
+        + windowed_launches[k] + self_launches[k]
         for k in pair_launches
     }
     k4_main = next(r for r in banded["k4"] if r["width"] == 512)

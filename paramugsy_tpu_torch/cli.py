@@ -1,18 +1,20 @@
 """Command-line entry of the port (counterpart of paramugsy_tpu.cli).
 
-Two subcommands are ported so far, the pairwise one and the sequential
-multiple alignment:
+Three subcommands are ported so far, the pairwise one, the sequential
+multiple alignment and the genome-vs-self repeats:
 
     python -m paramugsy_tpu_torch.cli nucmer -ref_seq a.fa -query_seq b.fa \\
         -out_delta o.delta [-out_maf o.maf] [-device cuda|cpu]
     python -m paramugsy_tpu_torch.cli align -sequential g1.fa g2.fa ... \\
-        -out_maf out.maf [-refine] [-device cuda|cpu]
+        -out_maf out.maf [-refine] [-duplications] [-device cuda|cpu]
+    python -m paramugsy_tpu_torch.cli repeats -seq g.fa [-out_delta o.delta] \\
+        [-out_maf o.maf] [-minlength 65] [-device cuda|cpu]
 
 Their flags and output are the reference's; ``-device`` picks the torch
 device (``cuda`` by default, which raises without a card; ``cpu`` runs
 the plain versions of the kernels).  ``align`` without ``-sequential``,
-and its ``-tmp_dir``, ``-distributed`` and ``-duplications``, exit 2
-naming the ROADMAP item that will port them.
+and its ``-tmp_dir`` and ``-distributed``, exit 2 naming the ROADMAP item
+that will port them.
 """
 from __future__ import annotations
 
@@ -107,7 +109,9 @@ def _align_main(argv: list[str]) -> int:
     )
     ap.add_argument(
         "-duplications", action="store_true",
-        help="genome-vs-self duplications (not ported yet)",
+        help="detect per-genome segmental duplications (genome-vs-self "
+        "repeat alignment) and append them as label=dup* blocks "
+        "(mugsyWGA --duplications role)",
     )
     ap.add_argument(
         "-dup_list", help="file listing precomputed duplication MAF paths to append"
@@ -133,7 +137,6 @@ def _align_main(argv: list[str]) -> int:
         (not args.sequential, "runs without -sequential need the concurrent executor", 8),
         (args.tmp_dir, "-tmp_dir needs the concurrent executor's artifact store", 8),
         (args.distributed, "-distributed needs the multi-host runtime", 9),
-        (args.duplications, "-duplications needs align_self", "4b"),
     ]
     for hit, why, item in unported:
         if hit:
@@ -167,6 +170,8 @@ def _align_main(argv: list[str]) -> int:
     if args.tree:
         with open(args.tree) as f:
             cfg.guide_tree_newick = f.read().strip()
+    if args.duplications:
+        cfg.duplications = True
     if args.dup_list:
         with open(args.dup_list) as f:
             cfg.dup_list = [line.strip() for line in f if line.strip()]
@@ -182,15 +187,52 @@ def _align_main(argv: list[str]) -> int:
     return 0
 
 
+def _repeats_main(argv: list[str]) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="paramugsy_tpu_torch repeats")
+    ap.add_argument("-seq", required=True, help="genome FASTA")
+    ap.add_argument("-out_maf")
+    ap.add_argument("-out_delta")
+    ap.add_argument("-minlength", type=int, default=65)
+    ap.add_argument("-device", default="cuda", help="torch device: cuda or cpu")
+    args = ap.parse_args(argv)
+
+    from paramugsy_tpu_torch.formats.delta_maf import delta_to_maf_blocks
+    from paramugsy_tpu_torch.formats.maf import write_maf
+    from paramugsy_tpu_torch.ops.align_pair import AlignConfig, align_self
+    from paramugsy_tpu_torch.pipeline import load_genome
+    from paramugsy_tpu_torch.utils.platform import resolve_device
+
+    device = resolve_device(args.device)
+    g = load_genome(args.seq)
+    entries = []
+    for name, seq in g.seqs.items():
+        entries.extend(
+            e
+            for e in align_self(seq, name, AlignConfig(), device=device)
+            if e.alignment_length() >= args.minlength
+        )
+    if args.out_delta:
+        with open(args.out_delta, "w") as f:
+            f.write(delta_text(entries, args.seq, args.seq))
+    if args.out_maf:
+        write_maf(args.out_maf, delta_to_maf_blocks(entries, g.seqs, g.seqs))
+    print(f"{len(entries)} repeat alignments", file=sys.stderr)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "nucmer":
         return _nucmer_main(argv[1:])
     if argv and argv[0] == "align":
         return _align_main(argv[1:])
+    if argv and argv[0] == "repeats":
+        return _repeats_main(argv[1:])
     print(
-        "usage: python -m paramugsy_tpu_torch.cli nucmer|align ... (the other "
-        "subcommands are not ported yet; see ROADMAP.md queue A)",
+        "usage: python -m paramugsy_tpu_torch.cli nucmer|align|repeats ... (the "
+        "other subcommands are not ported yet; see ROADMAP.md queue A)",
         file=sys.stderr,
     )
     return 2

@@ -10,6 +10,11 @@ Sequences longer than ``cfg.window`` are cut into a grid of overlapping
 window pairs that run through `align_pairs_batch`, and the pieces are
 stitched back into one entry list (`_align_pair_windowed`).
 
+`align_self` is the genome-vs-self form (duplication detection): repeat
+seeding pairs adjacent occurrences of each k-mer, and the same chaining
+and gap extension turn them into entries; beyond ``cfg.window`` it runs
+per window and per window pair (`_align_self_windowed`).
+
 The host helpers (config, chains, entry assembly, windows, post-filters)
 are copied from the reference, whose module imports JAX.
 """
@@ -37,6 +42,7 @@ from paramugsy_tpu_torch.ops.encode import (
 from paramugsy_tpu_torch.ops.extend import Scoring, align_segments, align_segments_spans
 from paramugsy_tpu_torch.ops.seeding import (
     auto_sample_shift,
+    repeat_cluster_packed,
     seed_cluster_both_packed,
     unpack_seed_clusters,
 )
@@ -714,6 +720,135 @@ def _align_pair_windowed(
     per_job = align_pairs_batch(jobs, windowed_sub_config(cfg), cache, device)
     return assemble_windowed(
         per_job, meta, ref_np, query_np, ref_name, query_name, cfg, device=device
+    )
+
+
+def align_self(
+    seq: str | np.ndarray,
+    name: str = "ref",
+    cfg: AlignConfig | None = None,
+    device_cache: dict | None = None,
+    device: str | torch.device | None = None,
+) -> list[DeltaEntry]:
+    """Genome-vs-self repeat alignment (the duplication-detection role),
+    computed on `device` (``cuda`` unless named).
+
+    Direct and inverted segmental duplications come from adjacent-
+    occurrence repeat seeding (`repeat_cluster_packed`), then are chained
+    and gap-extended like `align_pair`'s.  Entries are canonical (copy 1
+    starts before copy 2) and never the identity.  The seed bucket starts
+    at ``cfg.max_seeds`` and grows to fit the merged runs, up to
+    ``max_seeds_cap``; the self path has no sampling and no pinned bucket.
+    """
+    device = resolve_device(device)
+    cfg = cfg or AlignConfig()
+    ref_np = seq if isinstance(seq, np.ndarray) else encode(seq)
+    n = len(ref_np)
+
+    if n > cfg.window:
+        return _align_self_windowed(ref_np, name, cfg, device=device)
+
+    ref_d = device_codes(ref_np, device, device_cache, name)
+    ref_rc_np = revcomp_codes_np(ref_np)
+
+    max_seeds = cfg.max_seeds
+    while True:
+        engines.record_repeatcluster(device)  # one count per actual dispatch
+        packed = repeat_cluster_packed(
+            ref_d,
+            n,
+            k=cfg.k,
+            max_seeds=max_seeds,
+            min_match=cfg.min_match,
+            band=cfg.band,
+            max_gap=cfg.max_gap,
+            max_clusters=cfg.max_clusters,
+        ).cpu().numpy()
+        _, n_runs, _, m_compute, strands = unpack_seed_clusters(
+            packed, max_seeds, cfg.max_clusters
+        )
+        if n_runs <= m_compute or max_seeds >= cfg.max_seeds_cap:
+            break
+        max_seeds = min(
+            cfg.max_seeds_cap, max(max_seeds * 2, 1 << (n_runs - 1).bit_length())
+        )
+
+    entries: list[DeltaEntry] = []
+    for chain in _chains_of_strands(strands, cfg):
+        qn = ref_rc_np if chain.reverse else ref_np
+        entries.extend(
+            _entries_of_chain(chain, ref_np, qn, name, name, n, cfg, device)
+        )
+    out: list[DeltaEntry] = []
+    for e in entries:
+        r, q = e.ref_range.abs(), e.query_range.abs()
+        if (r.start, r.end) == (q.start, q.end):
+            continue  # palindromic self-match (identical interval)
+        if r.start >= q.start:
+            continue  # mirror of a pair already reported canonically
+        out.append(e)
+    out.sort(key=lambda e: (e.ref_range.abs().start, e.query_range.abs().start))
+    return out
+
+
+def _align_self_windowed(
+    ref_np: np.ndarray, name: str, cfg: AlignConfig, *, device: torch.device
+) -> list[DeltaEntry]:
+    """Self-repeat detection beyond the seeding window.
+
+    Within-window repeats come from `align_self` per window; repeats whose
+    copies live in different windows are ordinary pairwise alignments
+    between window i and window j (i < j), which also keeps the canonical
+    copy1-before-copy2 orientation.  Each window keeps only the entries
+    whose midpoints fall in its core (both cores for a window pair).
+    """
+    n = len(ref_np)
+    sub = dataclasses.replace(cfg, window=1 << 62, post_filter=None)
+    wins = _windows(n, cfg)
+    # One cache for both the self and the cross-window alignments: window
+    # slices key by (name@offset, length), so each uploads once.
+    cache: dict = {}
+    entries: list[DeltaEntry] = []
+    for i, (rw0, rw1, rc0, rc1) in enumerate(wins):
+        for e in align_self(
+            ref_np[rw0:rw1], f"{name}@w{rw0}", sub, device_cache=cache, device=device
+        ):
+            rm = rw0 + (e.ref_range.abs().start + e.ref_range.abs().end) // 2
+            qm = rw0 + (e.query_range.abs().start + e.query_range.abs().end) // 2
+            if not (rc0 < rm <= rc1 and rc0 < qm <= rc1):
+                continue
+            entries.append(_shift_entry(e, rw0, rw0, n, name))
+        for qw0, qw1, qc0, qc1 in wins[i + 1 :]:
+            for e in align_pair(
+                ref_np[rw0:rw1], ref_np[qw0:qw1],
+                f"{name}@w{rw0}", f"{name}@w{qw0}", sub,
+                device_cache=cache, device=device,
+            ):
+                rm = rw0 + (e.ref_range.abs().start + e.ref_range.abs().end) // 2
+                qm = qw0 + (e.query_range.abs().start + e.query_range.abs().end) // 2
+                if not (rc0 < rm <= rc1 and qc0 < qm <= qc1):
+                    continue
+                g = _shift_entry(e, rw0, qw0, n, name)
+                r, q = g.ref_range.abs(), g.query_range.abs()
+                if (r.start, r.end) == (q.start, q.end) or r.start >= q.start:
+                    continue
+                entries.append(g)
+    entries.sort(key=lambda e: (e.ref_range.abs().start, e.query_range.abs().start))
+    return entries
+
+
+def _shift_entry(
+    e: DeltaEntry, r_off: int, q_off: int, n: int, name: str
+) -> DeltaEntry:
+    """Window-local entry -> global coordinates (same sequence length n)."""
+    return dataclasses.replace(
+        e,
+        ref_name=name,
+        query_name=name,
+        ref_len=n,
+        query_len=n,
+        ref_range=Range(e.ref_range.start + r_off, e.ref_range.end + r_off),
+        query_range=Range(e.query_range.start + q_off, e.query_range.end + q_off),
     )
 
 

@@ -41,6 +41,12 @@ def record_seedcluster(device: torch.device, n: int = 1) -> None:
     record(f"seedcluster-{device.type}", n)
 
 
+def record_repeatcluster(device: torch.device, n: int = 1) -> None:
+    """Count self-repeat seeding/clustering dispatches by device type
+    (``repeatcluster-cuda`` or ``repeatcluster-cpu``)."""
+    record(f"repeatcluster-{device.type}", n)
+
+
 def device_dp_enabled(device: torch.device) -> bool:
     """Should long-segment extension run on the wavefront engine?"""
     v = os.environ.get("PARAMUGSY_DEVICE_DP")

@@ -9,6 +9,11 @@ the match slice B2 and the output slices.  Of the reference's two
 sampling-compaction forms (proven equal by its tests) this port keeps
 scatter-then-sort, which sorts a 2^shift-times smaller buffer.
 
+`find_repeat_seeds`, the self path's seeding, pairs adjacent occurrences
+of each k-mer over the forward and reverse-complement streams of one
+sequence.  Both seed sets are clustered per strand (or repeat type) and
+packed in one layout (`_cluster_packed`).
+
 The values left in masked output slots are garbage that still reaches the
 packed vector, so those are reproduced too (see `_carry_last_marked`).
 """
@@ -19,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from paramugsy_tpu_torch.ops.encode import M32, kmer_canonical
+from paramugsy_tpu_torch.ops.encode import M32, kmer_canonical, kmer_codes
 
 BIG = 2**31 - 1
 M23 = (1 << 23) - 1
@@ -285,19 +290,38 @@ def seed_cluster_both_packed(
           c_first[C], c_rstart[C], c_rend[C], c_qstart[C], c_qend[C],
           c_weight[C], c_nseeds[C], c_mask[C], n_clusters[1], n_valid[1]
     """
-    from paramugsy_tpu_torch.ops.chaining import cluster_seeds
-
     seeds = find_seeds_both(
         ref_codes, query_codes, q_len,
         k=k, max_seeds=max_seeds, unique_in_query=unique_in_query,
         sample_shift=sample_shift, merge_gap=merge_gap,
     )
+    return _cluster_packed(
+        seeds, min_match=min_match, band=band, max_gap=max_gap,
+        max_clusters=max_clusters, m_out=m_out, c_out=c_out,
+    )
+
+
+def _cluster_packed(
+    seeds: SeedMatches2,
+    *,
+    min_match: int,
+    band: int,
+    max_gap: int,
+    max_clusters: int,
+    m_out: int | None = None,
+    c_out: int | None = None,
+) -> torch.Tensor:
+    """Cluster each strand's seeds (``reverse`` False, then True) and pack
+    every output into one int32 vector (`seed_cluster_both_packed`'s
+    layout), the seeds cut to `m_out` and the summaries to `c_out`."""
+    from paramugsy_tpu_torch.ops.chaining import cluster_seeds
+
     base_keep = seeds.mask & (seeds.length >= min_match)
     m_eff = seeds.rpos.shape[0]
     c_eff = min(max_clusters, m_eff)
     m_o = m_eff if m_out is None else min(m_out, m_eff)
     c_o = c_eff if c_out is None else min(c_out, c_eff)
-    dev = ref_codes.device
+    dev = seeds.rpos.device
     # Filled on the device, not copied from the host: a host-to-device copy
     # would wait for the work already queued.
     parts = [
@@ -324,6 +348,124 @@ def seed_cluster_both_packed(
             + [cl.n_clusters[None], keep.sum()[None]]
         )
     return torch.cat([p.to(torch.int64) for p in parts]).to(torch.int32)
+
+
+def find_repeat_seeds(
+    ref_codes: torch.Tensor,
+    ref_rc_codes: torch.Tensor,
+    *,
+    k: int = 16,
+    max_seeds: int = 1 << 16,
+) -> SeedMatches2:
+    """Self-repeat seeding: adjacent occurrences of a k-mer in the sort
+    over the forward + revcomp streams are paired, copy 1 always forward
+    (see paramugsy_tpu.ops.seeding.find_repeat_seeds for the design).
+    ``reverse`` marks inverted pairs, whose copy 2 is in revcomp-local
+    coordinates.
+
+    The reference's three sorts become stable sorts of packed int64 keys
+    (the tie order of its masked slots reaches the output), and every
+    roll keeps its wrap-around mask."""
+    dev = ref_codes.device
+    rk, rvalid = kmer_codes(ref_codes, k)
+    ck, cvalid = kmer_codes(ref_rc_codes, k)
+    n_f, n_c = rk.shape[0], ck.shape[0]
+    n = n_f + n_c
+    if max(n_f, n_c) >= 1 << 23:
+        raise ValueError("sequence bucket exceeds 2^23; window the input")
+
+    def arange(m):
+        return torch.arange(m, device=dev, dtype=torch.int64)
+
+    # Sort #1 over (invalid, code, owner|pos): 1 + 32 + 24 bits.  Every
+    # key is distinct, so the order is the reference's.
+    packed = torch.cat([arange(n_f), (1 << 23) | arange(n_c)])
+    invalid = torch.cat([~rvalid, ~cvalid]).to(torch.int64)
+    key, _ = torch.sort((invalid << 56) | (torch.cat([rk, ck]) << 24) | packed)
+    valid = (key >> 56) == 0
+    codes = (key >> 24) & M32
+    owner = (key >> 23) & 1
+    pos = key & M23
+
+    idx = arange(n)
+    p1 = torch.roll(pos, 1)
+    is_match = (
+        valid
+        & torch.roll(valid, 1)
+        & (codes == torch.roll(codes, 1))
+        & (idx > 0)
+        & (torch.roll(owner, 1) == 0)  # copy 1 always forward
+    )
+    n_raw = is_match.sum()
+
+    # Sort #2 by (key2, p1), carrying pos: masked slots tie on (2^30, p1)
+    # and keep their order, as XLA's sort keeps it.
+    diag = p1 - pos + OFF
+    key2 = torch.where(is_match, (owner << 24) | diag, 1 << 30)
+    k2, order = torch.sort((key2 << 23) | p1, stable=True)
+    key2, rpos_c, qpos_c = k2 >> 23, k2 & M23, pos[order]
+    mask_c = key2 < (1 << 30)
+    owner_c = (key2 >> 24) & 3
+
+    next_continues = (
+        torch.roll(mask_c, -1)
+        & (torch.roll(key2, -1) == key2)
+        & (torch.roll(qpos_c, -1) == qpos_c + 1)
+    )
+    prev_mask = torch.roll(mask_c, 1) & (idx > 0)
+    run_start = mask_c & (
+        ~prev_mask
+        | (key2 != torch.roll(key2, 1))
+        | (qpos_c != torch.roll(qpos_c, 1) + 1)
+    )
+    is_run_end = mask_c & ((idx == n - 1) | ~next_continues)
+    # -1 before the first run start, as the reference's cummax leaves it.
+    run_start_idx = torch.cummax(torch.where(run_start, idx, -1), 0).values
+    run_len_kmers = idx - run_start_idx + 1
+    run_rpos = rpos_c - run_len_kmers + 1
+    run_qpos = qpos_c - run_len_kmers + 1
+    n_runs = is_run_end.sum()
+
+    # Sort #3 (compaction), stable on key3 alone.
+    key3 = torch.where(is_run_end, (owner_c << 24) | run_rpos, 1 << 30)
+    key3, order = torch.sort(key3, stable=True)
+    take = min(max_seeds, n)
+    key3_c = key3[:take]
+    order = order[:take]
+    return SeedMatches2(
+        rpos=key3_c & (OFF * 2 - 1),
+        qpos=run_qpos[order],
+        length=run_len_kmers[order] + (k - 1),
+        reverse=((key3_c >> 24) & 3) == 1,
+        mask=key3_c < (1 << 30),
+        n_raw=n_raw,
+        n_runs=n_runs,
+        samp_over=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+
+def repeat_cluster_packed(
+    ref_codes: torch.Tensor,
+    r_len: int,
+    *,
+    k: int = 16,
+    max_seeds: int = 1 << 16,
+    min_match: int = 20,
+    band: int = 16,
+    max_gap: int = 90,
+    max_clusters: int = 4096,
+) -> torch.Tensor:
+    """Self-repeat seeding + per-type clustering, packed in the layout of
+    `seed_cluster_both_packed` with strand slot 0 = direct and 1 =
+    inverted (unpack with `unpack_seed_clusters`).  The revcomp stream is
+    made on the device from the first `r_len` codes of the padded
+    `ref_codes`."""
+    seeds = find_repeat_seeds(
+        ref_codes, revcomp_on_device(ref_codes, r_len), k=k, max_seeds=max_seeds
+    )
+    return _cluster_packed(
+        seeds, min_match=min_match, band=band, max_gap=max_gap, max_clusters=max_clusters
+    )
 
 
 class HostClusters(NamedTuple):

@@ -9,11 +9,14 @@ on the wavefront kernels).  Every function that computes takes an
 explicit ``device``; one `device_cache` of padded genome codes serves all
 pairs of a run.
 
+With ``duplications`` set, every genome is also aligned against itself
+(`align_self`) and its segmental duplications follow the LCBs as
+``dup<N>`` blocks (`duplication_blocks`).
+
 The host code is copied from the reference, whose module imports JAX
 through its aligner.  `genome_pair_deltas_batch` (a chunk of genome
 pairs) is the concurrent executor's task; the executor is not ported yet
-(ROADMAP queue A, item 8).  Not ported yet: `duplication_blocks` (needs
-`align_self`, item 4b).
+(ROADMAP queue A, item 8).
 """
 from __future__ import annotations
 
@@ -26,11 +29,12 @@ import torch
 
 from paramugsy_tpu_torch.coords.range import FORWARD
 from paramugsy_tpu_torch.formats.delta import DeltaEntry
+from paramugsy_tpu_torch.formats.delta_maf import delta_to_maf_blocks
 from paramugsy_tpu_torch.formats.fasta import normalize_header, read_fasta, species_of_path
 from paramugsy_tpu_torch.formats.maf import MAF_HEADER, MafBlock, MafSequence, read_maf, write_maf
 from paramugsy_tpu_torch.lcb.merge import merge_blocks
 from paramugsy_tpu_torch.lcb.score import score_blocks
-from paramugsy_tpu_torch.ops.align_pair import AlignConfig, align_pair
+from paramugsy_tpu_torch.ops.align_pair import AlignConfig, align_pair, align_self
 from paramugsy_tpu_torch.ops.encode import encode
 from paramugsy_tpu_torch.ops.extend import Scoring
 from paramugsy_tpu_torch.tree.guide_tree import GuideTree, guide_tree_of_seqs, parse_newick
@@ -77,7 +81,7 @@ class PipelineConfig:
     chain_gap: int = 1000  # collinear chain/bridge gap for LCB selection
     align: AlignConfig = field(default_factory=AlignConfig)
     distance_k: int = 8
-    duplications: bool = False  # genome-vs-self duplications: not ported
+    duplications: bool = False  # genome-vs-self duplications (mugsyWGA --duplications)
     dup_list: list = field(default_factory=list)  # precomputed dup MAF paths
     # Optional Newick guide tree; leaf names are genome (species) names.
     guide_tree_newick: Optional[str] = None
@@ -278,16 +282,39 @@ class Aligner:
         return self.run_node(tree)
 
 
-def gather_dup_blocks(genomes: list[Genome], cfg: PipelineConfig) -> list[MafBlock]:
-    """Duplication blocks from precomputed MAFs (the -dup_list file-list
-    form of mugsy_mugsy).  Self-alignment (``cfg.duplications``) is not
-    ported yet."""
-    if cfg.duplications:
-        raise NotImplementedError(
-            "duplication detection needs align_self, not ported yet "
-            "(ROADMAP queue A, item 4b); pass precomputed MAFs in dup_list"
-        )
+def duplication_blocks(
+    genomes: list[Genome], cfg: PipelineConfig, *, device: torch.device
+) -> list[MafBlock]:
+    """Per-genome self-alignment on `device` -> duplication MAF blocks
+    (label=dup*).
+
+    The mugsyWGA --duplications role: each block pairs two copies of a
+    segmental duplication within one genome (second row reverse-strand for
+    inverted repeats).
+    """
+    out: list[MafBlock] = []
+    for g in genomes:
+        for name, seq in g.seqs.items():
+            cfg.log(f"duplications {name}")
+            entries = [
+                e
+                for e in align_self(seq, name, cfg.align, device=device)
+                if e.alignment_length() >= cfg.min_length
+            ]
+            out.extend(delta_to_maf_blocks(entries, g.seqs, g.seqs))
+    for b in out:
+        b.attrs["label"] = "dup"
+    return out
+
+
+def gather_dup_blocks(
+    genomes: list[Genome], cfg: PipelineConfig, *, device: torch.device
+) -> list[MafBlock]:
+    """Duplication blocks from self-alignment on `device` and/or
+    precomputed MAFs (the -dup_list file-list form of mugsy_mugsy)."""
     dups: list[MafBlock] = []
+    if cfg.duplications:
+        dups.extend(duplication_blocks(genomes, cfg, device=device))
     for path in cfg.dup_list:
         for b in read_maf(path):
             b.attrs["label"] = "dup"
@@ -321,8 +348,8 @@ def align_fastas(
     """CLI-level entry: FASTA files -> MAF file, computed on `device`."""
     genomes = [load_genome(p) for p in fasta_paths]
     aligner = Aligner(genomes, cfg, device=device)
-    # Before any alignment: an unported option fails at once.
-    dups = gather_dup_blocks(genomes, aligner.cfg)
-    blocks = finalize_blocks(aligner.run(), dups)
+    blocks = finalize_blocks(
+        aligner.run(), gather_dup_blocks(genomes, aligner.cfg, device=aligner.device)
+    )
     write_maf(out_maf, blocks, header=MAF_HEADER)
     return blocks

@@ -1,8 +1,9 @@
 """The port's nucmer CLI against the reference's, and the port's import
 boundary: no module of paramugsy_tpu_torch imports JAX or the JAX package
 (paramugsy_tpu), neither on import nor while running ``nucmer``, a
-windowed ``align_pair`` and ``align -sequential -refine``, and no import
-statement in its sources names them."""
+windowed ``align_pair``, ``align -sequential -refine``, ``repeats`` and
+``align -sequential -duplications``, and no import statement in its
+sources names them."""
 import io
 import os
 import subprocess
@@ -175,6 +176,22 @@ except SystemExit as e:
 assert "jax" not in sys.modules, "align -sequential -refine pulled in jax"
 assert not reference_modules(), ("align", reference_modules())
 assert fused and engines.COUNTS.get("native-banded"), (len(fused), engines.COUNTS)
+# The self-alignment path: the repeats command and align -duplications.
+sys.argv = ["cli", "repeats", "-seq", args[0], "-out_delta", args[7], "-device", "cpu"]
+try:
+    runpy.run_module("paramugsy_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+sys.argv = ["cli", "align", "-sequential", "-duplications", args[0], args[1],
+            "-out_maf", args[8], "-device", "cpu"]
+try:
+    runpy.run_module("paramugsy_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert "jax" not in sys.modules, "repeats / align -duplications pulled in jax"
+assert not reference_modules(), ("self path", reference_modules())
+# One dispatch per contig: 2 (repeats) + 2 + 1 (align).
+assert engines.COUNTS.get("repeatcluster-cpu") == 5, engines.COUNTS
 print(len(names), "modules")
 """
 
@@ -188,10 +205,13 @@ def test_port_never_imports_jax(tmp_path):
     env.pop("PARAMUGSY_DEVICE_DP", None)
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, ref_fa, qry_fa, str(tmp_path / "o.delta"),
-         *genomes, str(tmp_path / "o.maf")],
+         *genomes, str(tmp_path / "o.maf"), str(tmp_path / "self.delta"),
+         str(tmp_path / "dup.maf")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[0]) >= 20
     assert (tmp_path / "o.delta").read_text().startswith(ref_fa)
     assert (tmp_path / "o.maf").read_text().startswith("##maf")
+    assert (tmp_path / "self.delta").read_text().startswith(f"{ref_fa} {ref_fa}")
+    assert (tmp_path / "dup.maf").read_text().startswith("##maf")

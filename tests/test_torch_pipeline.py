@@ -153,8 +153,7 @@ def test_config_from_dict_and_convert_round_trip(tmp_path):
 @pytest.mark.parametrize(
     "flags, item",
     [([], "item 8"), (["-sequential", "-tmp_dir", "x"], "item 8"),
-     (["-sequential", "-distributed"], "item 9"),
-     (["-sequential", "-duplications"], "item 4")],
+     (["-sequential", "-distributed"], "item 9")],
 )
 def test_unported_align_options_exit_2(family, tmp_path, capsys, flags, item):
     argv = ["align", *family[:2], "-out_maf", str(tmp_path / "o.maf"), *flags, "-device", "cpu"]
@@ -163,11 +162,45 @@ def test_unported_align_options_exit_2(family, tmp_path, capsys, flags, item):
     assert not (tmp_path / "o.maf").exists()
 
 
+def test_align_duplications_cli_equals_reference(tmp_path):
+    """``align -sequential -duplications`` (once refused with exit 2) on
+    two 8.8 kb genomes that share a planted direct duplication: the
+    reference's MAF, byte for byte, with its dup blocks."""
+    rng = np.random.default_rng(9)
+    anc = rng.integers(0, 4, 8000).astype(np.int8)
+    anc = np.concatenate([anc[:6000], anc[1000:1800], anc[6000:]])
+    paths = []
+    for name in ("alpha", "beta"):
+        g = anc.copy()
+        m = rng.random(len(g)) < 0.02
+        g[m] = (g[m] + 1) % 4
+        paths.append(chip_smoke.write_fasta(str(tmp_path / f"{name}.fa"), "chr1", g))
+    ref_out, port_out = tmp_path / "ref.maf", tmp_path / "port.maf"
+    flags = ["-sequential", "-duplications"]
+    assert ref_cli.main(["align", *paths, "-out_maf", str(ref_out), *flags]) == 0
+    port_engines.reset_counts()
+    assert port_cli.main(
+        ["align", *paths, "-out_maf", str(port_out), *flags, "-device", "cpu"]
+    ) == 0
+    assert port_out.read_bytes() == ref_out.read_bytes()
+    assert b"label=dup1" in port_out.read_bytes()
+    assert port_engines.COUNTS["repeatcluster-cpu"] == 2
+
+
 def test_duplications_config_raises_and_cuda_needs_a_card(family, tmp_path):
+    """`duplications` in the config gives the reference's MAF (it raised
+    NotImplementedError before align_self was ported); asking for the
+    default cuda device without a card still raises."""
+    ref_pipe.align_fastas(
+        family[:2], str(tmp_path / "ref.maf"), ref_pipe.PipelineConfig(duplications=True)
+    )
     cfg = port_pipe.PipelineConfig(duplications=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        port_pipe.align_fastas(family[:2], str(tmp_path / "o.maf"), cfg, device="cpu")
+    port_pipe.align_fastas(family[:2], str(tmp_path / "o.maf"), cfg, device="cpu")
+    assert (tmp_path / "o.maf").read_bytes() == (tmp_path / "ref.maf").read_bytes()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             port_cli.main(["align", "-sequential", *family[:2], "-out_maf",
                            str(tmp_path / "o.maf")])
+        with pytest.raises(RuntimeError):
+            port_cli.main(["align", "-sequential", "-duplications", *family[:2],
+                           "-out_maf", str(tmp_path / "o.maf")])
