@@ -84,15 +84,28 @@ result line:
    twice: the MAF, its 306 dup blocks included, must equal the
    reference's sha256.
 
+11. The concurrent executor (``align`` without ``-sequential``, four
+   worker threads sharing the card, pairs in chunks of 16):
+11a. the family of phase 5 twice (first, warm): phase 5's digest, 28
+   seeding dispatches a run on the card, native NW, no chunk degraded to
+   the per-pair path;
+11b. the realistic fixture with ``-refine`` twice: phase 6's digest, its
+   151 long segments on K1/K2 with exactly 151 launches of each a run,
+   launched from the merge workers;
+11c. the realistic fixture with ``-refine -tmp_dir``: a first run, a
+   resumed run (no seeding, no K1 or K2 launch) and a run after the store's
+   ``nodes/`` is deleted (no seeding, 151 launches of each again), all
+   at phase 6's digest.  Their walls print beside phases 5 and 6's.
+
 Launch counters are zeroed before each path (phases 3-4 together, 2b's
-entry points, 5, 6, 7-8 together and 9-10 together) and read after it.  The script
+entry points, 5, 6, 7-8 together, 9-10 together and 11) and read after it.  The script
 imports only the port (``paramugsy_tpu_torch``), never JAX or the JAX
 package directly.  Without
 a CUDA device it exits 2.  ``python3 chip_smoke.py --wavefront`` runs
 phases 1 and 2a only (a quick check after an edit of K1 or K2);
 ``--banded`` runs phases 1 and 2b only (after an edit of K3/K4);
 ``--profile`` runs phase 1 and traced runs of
-phases 6, 5, 7, 8, 9, 9b, 9c and 10 (device time per kernel, busy
+phases 6, 5, 11a, 7, 8, 9, 9b, 9c and 10 (device time per kernel, busy
 share).
 None of them prints the result line.
 
@@ -951,33 +964,38 @@ def _zero_launches() -> None:
     wf.wavefront_traceback.launches = 0
 
 
-def _align_runs(name: str, argv: list, out: str, digest: str) -> list:
-    """`cli align` twice on the same inputs: per run the wall, the engine
-    counts, the phase times and the MAF digest check."""
+def _align_run(name: str, argv: list, out: str, digest: str) -> dict:
+    """One `cli align` run: its wall, engine counts, K1/K2 launches, phase
+    times and the MAF digest check."""
     import torch
 
     from paramugsy_tpu_torch import cli
     from paramugsy_tpu_torch.ops import engines
     from paramugsy_tpu_torch.pipeline import METRICS
 
-    runs = []
-    for _ in range(2):
-        METRICS.phases.clear()
-        before = dict(engines.COUNTS)
-        t0 = time.perf_counter()
-        if cli.main(argv) != 0:
-            raise AssertionError(f"{name}: align CLI failed")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if file_sha256(out) != digest:
-            raise AssertionError(f"{name}: MAF differs from the JAX reference")
-        runs.append({
-            "wall_s": wall,
-            "engines": _engine_delta(before),
-            "phases_s": {k: v.total_s for k, v in sorted(METRICS.phases.items())},
-        })
-        print(METRICS.report(), flush=True)
-    return runs
+    METRICS.phases.clear()
+    before = dict(engines.COUNTS)
+    launches = _launch_counts()
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise AssertionError(f"{name}: align CLI failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if file_sha256(out) != digest:
+        raise AssertionError(f"{name}: MAF differs from the JAX reference")
+    print(METRICS.report(), flush=True)
+    return {
+        "wall_s": wall,
+        "engines": _engine_delta(before),
+        "launches": {k: v - launches[k] for k, v in _launch_counts().items()},
+        "phases_s": {k: v.total_s for k, v in sorted(METRICS.phases.items())},
+    }
+
+
+def _align_runs(name: str, argv: list, out: str, digest: str) -> list:
+    """`cli align` twice on the same inputs (first, warm): `_align_run`'s
+    row of each."""
+    return [_align_run(name, argv, out, digest) for _ in range(2)]
 
 
 def family_phase(device) -> dict:
@@ -1000,14 +1018,19 @@ def family_phase(device) -> dict:
     return row
 
 
-def realistic_phase(device) -> dict:
-    """The realistic fixture through ``align -sequential -refine`` (first,
-    warm): every long refine segment on K1/K2."""
+def _realistic_paths() -> list:
     import glob
 
     paths = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "realistic", "*.fa")))
     if len(paths) != 5:
         raise AssertionError(f"realistic fixture: {len(paths)} FASTA files, expected 5")
+    return paths
+
+
+def realistic_phase(device) -> dict:
+    """The realistic fixture through ``align -sequential -refine`` (first,
+    warm): every long refine segment on K1/K2."""
+    paths = _realistic_paths()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "realistic.maf")
         argv = [
@@ -1024,6 +1047,122 @@ def realistic_phase(device) -> dict:
     row = {"genomes": len(paths), "first": runs[0], "warm": runs[1]}
     print("realistic", json.dumps(row), flush=True)
     return row
+
+
+def _executor_argv(paths: list, out: str, device) -> list:
+    """``align`` on the concurrent executor at its defaults, spelled out."""
+    return [
+        "align", *paths, "-run_size", "4", "-nucmer_chunk_size", "16",
+        "-out_maf", out, "-device", device.type,
+    ]
+
+
+def _check_no_degrade(name: str, runs: list) -> None:
+    for r in runs:
+        if "executor-degrade" in r["engines"]:
+            raise AssertionError(f"{name}: a pair chunk degraded to per-pair: {r}")
+
+
+def _check_refine_run(name: str, r: dict) -> None:
+    """Every long refine segment on K1/K2, one K1 and one K2 launch each
+    (refinement aligns them one at a time)."""
+    want = {"wavefront_dp": REALISTIC_LONG_SEGMENTS,
+            "wavefront_traceback": REALISTIC_LONG_SEGMENTS}
+    if r["engines"].get("device-wavefront") != REALISTIC_LONG_SEGMENTS or r["launches"] != want:
+        raise AssertionError(
+            f"{name}: {r['engines']}, launches {r['launches']}; expected "
+            f"{REALISTIC_LONG_SEGMENTS} long segments and launches of each kernel"
+        )
+
+
+def executor_family_phase(device) -> dict:
+    """11a: the 8 x 2 Mbp family through ``align`` on the concurrent
+    executor (first, warm): phase 5's digest and seeding count, from four
+    worker threads."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = family_fastas(tmp, FAMILY_BP, FAMILY_COUNT)
+        out = os.path.join(tmp, "family.maf")
+        runs = _align_runs("executor_family", _executor_argv(paths, out, device), out,
+                           FAMILY_MAF_SHA256)
+    for r in runs:
+        if r["engines"].get(f"seedcluster-{device.type}") != FAMILY_SEEDCLUSTER:
+            raise AssertionError(
+                f"executor_family: seeding dispatched {r['engines']}, expected "
+                f"{FAMILY_SEEDCLUSTER}"
+            )
+        if not r["engines"].get("native-nw") or "numpy-nw" in r["engines"]:
+            raise AssertionError(f"executor_family: segments did not run on native NW: {r}")
+    _check_no_degrade("executor_family", runs)
+    row = {"genomes": FAMILY_COUNT, "bp": FAMILY_BP, "first": runs[0], "warm": runs[1]}
+    print("executor_family", json.dumps(row), flush=True)
+    return row
+
+
+def executor_realistic_phase(device) -> dict:
+    """11b: the realistic fixture through ``align -refine`` on the
+    concurrent executor (first, warm): phase 6's digest, with the long
+    refine segments on K1/K2 launched from the merge workers."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "realistic.maf")
+        argv = _executor_argv(_realistic_paths(), out, device) + ["-refine"]
+        runs = _align_runs("executor_realistic", argv, out, REALISTIC_MAF_SHA256)
+    for r in runs:
+        _check_refine_run("executor_realistic", r)
+    _check_no_degrade("executor_realistic", runs)
+    row = {"genomes": 5, "first": runs[0], "warm": runs[1]}
+    print("executor_realistic", json.dumps(row), flush=True)
+    return row
+
+
+def executor_resume_phase(device) -> dict:
+    """11c: the realistic fixture through ``align -refine -tmp_dir``: a
+    first run, a resumed one (no seeding, no K1/K2: every merge loads from
+    the store) and one after ``nodes/`` is deleted (no seeding; the merges,
+    K1/K2 included, run again), all at phase 6's digest."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "realistic.maf")
+        store = os.path.join(tmp, "store")
+        argv = _executor_argv(_realistic_paths(), out, device) + ["-refine", "-tmp_dir", store]
+        first = _align_run("executor_resume", argv, out, REALISTIC_MAF_SHA256)
+        resumed = _align_run("executor_resume", argv, out, REALISTIC_MAF_SHA256)
+        n_pairs = len(os.listdir(os.path.join(store, "pairs")))
+        nodes = os.path.join(store, "nodes")
+        n_nodes = len(os.listdir(nodes))
+        for name in os.listdir(nodes):
+            os.remove(os.path.join(nodes, name))
+        remerged = _align_run("executor_resume", argv, out, REALISTIC_MAF_SHA256)
+    _check_refine_run("executor_resume first", first)
+    seeded = f"seedcluster-{device.type}"
+    if seeded in resumed["engines"] or any(resumed["launches"].values()):
+        raise AssertionError(f"executor_resume: the resumed run computed: {resumed}")
+    if seeded in remerged["engines"]:
+        raise AssertionError(f"executor_resume: pairs seeded again after nodes/ went: {remerged}")
+    _check_refine_run("executor_resume remerged", remerged)
+    _check_no_degrade("executor_resume", [first, resumed, remerged])
+    row = {"pairs": n_pairs, "nodes": n_nodes, "first": first, "resumed": resumed,
+           "remerged": remerged}
+    print("executor_resume", json.dumps(row), flush=True)
+    return row
+
+
+def print_executor_walls(smi: str, family: dict, realistic: dict, executor: dict) -> None:
+    """Phase 11's walls, first and warm in seconds, each path on its own
+    line beside the sequential runs of the same inputs (phases 5 and 6)."""
+    def walls(row):
+        return [row["first"]["wall_s"], row["warm"]["wall_s"]]
+
+    for name, row in (
+        ("family", {"sequential": walls(family), "executor": walls(executor["family"])}),
+        ("realistic_refine", {
+            "sequential": walls(realistic), "executor": walls(executor["realistic"]),
+        }),
+        ("realistic_refine_tmp_dir", {
+            "first_resumed_remerged": [
+                executor["resume"][k]["wall_s"] for k in ("first", "resumed", "remerged")
+            ],
+        }),
+    ):
+        print("executor_walls", json.dumps({"path": name, "card": smi, **row}), flush=True)
 
 
 def windowed_pair_phase(device) -> dict:
@@ -1250,9 +1389,7 @@ def duplications_phase(device) -> dict:
     """Phase 10: the realistic fixture through ``align -sequential
     -duplications`` twice (first, warm): the MAF must equal the
     reference's, dup blocks included."""
-    import glob
-
-    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "realistic", "*.fa")))
+    paths = _realistic_paths()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "duplications.maf")
         argv = [
@@ -1337,9 +1474,7 @@ def _profile_run(name: str, run, output_ok) -> dict:
 
 def profile_realistic() -> dict:
     """The realistic fixture through ``align -sequential -refine``, traced."""
-    import glob
-
-    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "realistic", "*.fa")))
+    paths = _realistic_paths()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "realistic.maf")
         argv = ["align", "-sequential", *paths, "-refine", "-out_maf", out, "-device", "cuda"]
@@ -1360,6 +1495,18 @@ def profile_family(windowed: bool) -> dict:
             "windowed_family" if windowed else "family", argv, out, file_sha256,
             WINDOWED_FAMILY_MAF_SHA256 if windowed else FAMILY_MAF_SHA256,
         )
+
+
+def profile_executor_family() -> dict:
+    """Phase 11a, the 8 x 2 Mbp family through ``align`` on the concurrent
+    executor, traced (beside `profile_family`'s sequential run)."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = family_fastas(tmp, FAMILY_BP, FAMILY_COUNT)
+        out = os.path.join(tmp, "family.maf")
+        argv = _executor_argv(paths, out, torch.device("cuda"))
+        return _profile_cli("executor_family", argv, out, file_sha256, FAMILY_MAF_SHA256)
 
 
 def profile_windowed_pair() -> dict:
@@ -1418,9 +1565,7 @@ def profile_self_island() -> dict:
 def profile_duplications() -> dict:
     """Phase 10, the realistic fixture through ``align -sequential
     -duplications``, traced."""
-    import glob
-
-    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "realistic", "*.fa")))
+    paths = _realistic_paths()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "duplications.maf")
         argv = ["align", "-sequential", *paths, "-duplications", "-out_maf", out,
@@ -1493,6 +1638,7 @@ def main(argv: list[str]) -> int:
     if argv == ["--profile"]:
         profile_realistic()
         profile_family(windowed=False)
+        profile_executor_family()
         profile_windowed_pair()
         profile_family(windowed=True)
         profile_repeats(windowed=False)
@@ -1541,12 +1687,12 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"a kernel of the path never launched: {pair_launches}")
 
     _zero_launches()
-    family_phase(device)
+    family_row = family_phase(device)
     family_launches = _launch_counts()
     print("main_path_launches", json.dumps({"family": family_launches}), flush=True)
 
     _zero_launches()
-    realistic_phase(device)
+    realistic_row = realistic_phase(device)
     refine_launches = _launch_counts()
     print("main_path_launches", json.dumps({"realistic": refine_launches}), flush=True)
     if min(refine_launches.values()) <= 0:
@@ -1572,9 +1718,22 @@ def main(argv: list[str]) -> int:
     if min(self_launches.values()) <= 0:
         raise AssertionError(f"K1/K2 never launched on the self path: {self_launches}")
 
+    # Phase 11: the concurrent executor (align without -sequential).
+    _zero_launches()
+    executor_rows = {
+        "family": executor_family_phase(device),
+        "realistic": executor_realistic_phase(device),
+        "resume": executor_resume_phase(device),
+    }
+    executor_launches = _launch_counts()
+    print("main_path_launches", json.dumps({"executor": executor_launches}), flush=True)
+    if min(executor_launches.values()) <= 0:
+        raise AssertionError(f"K1/K2 never launched from the executor: {executor_launches}")
+    print_executor_walls(smi, family_row, realistic_row, executor_rows)
+
     launches = {
         k: pair_launches[k] + family_launches[k] + refine_launches[k]
-        + windowed_launches[k] + self_launches[k]
+        + windowed_launches[k] + self_launches[k] + executor_launches[k]
         for k in pair_launches
     }
     k4_main = next(r for r in banded["k4"] if r["width"] == 512)

@@ -1,20 +1,24 @@
 """Command-line entry of the port (counterpart of paramugsy_tpu.cli).
 
-Three subcommands are ported so far, the pairwise one, the sequential
-multiple alignment and the genome-vs-self repeats:
+Four subcommands are ported so far, the pairwise one, the multiple
+alignment (``local`` is another name for ``align``, as in the reference)
+and the genome-vs-self repeats:
 
     python -m paramugsy_tpu_torch.cli nucmer -ref_seq a.fa -query_seq b.fa \\
         -out_delta o.delta [-out_maf o.maf] [-device cuda|cpu]
-    python -m paramugsy_tpu_torch.cli align -sequential g1.fa g2.fa ... \\
-        -out_maf out.maf [-refine] [-duplications] [-device cuda|cpu]
+    python -m paramugsy_tpu_torch.cli align|local g1.fa g2.fa ... \\
+        -out_maf out.maf [-run_size 4] [-nucmer_chunk_size 16] [-tmp_dir d] \\
+        [-sequential] [-refine] [-duplications] [-device cuda|cpu]
     python -m paramugsy_tpu_torch.cli repeats -seq g.fa [-out_delta o.delta] \\
         [-out_maf o.maf] [-minlength 65] [-device cuda|cpu]
 
 Their flags and output are the reference's; ``-device`` picks the torch
 device (``cuda`` by default, which raises without a card; ``cpu`` runs
-the plain versions of the kernels).  ``align`` without ``-sequential``,
-and its ``-tmp_dir`` and ``-distributed``, exit 2 naming the ROADMAP item
-that will port them.
+the plain versions of the kernels).  ``align`` runs the concurrent job-tree
+executor (`runtime.executor`: ``-run_size`` worker threads, pairs in
+chunks of ``-nucmer_chunk_size``, resumable through the ``-tmp_dir``
+artifact store) unless ``-sequential`` is given; ``-distributed`` exits 2
+naming the ROADMAP item that will port it.
 """
 from __future__ import annotations
 
@@ -118,9 +122,14 @@ def _align_main(argv: list[str]) -> int:
     )
     ap.add_argument("-run_size", type=int, default=4, help="concurrent task slots")
     ap.add_argument("-nucmer_chunk_size", type=int, default=16)
-    ap.add_argument("-sequential", action="store_true", help="single-process run")
-    ap.add_argument("-tmp_dir", help="artifact store (not ported yet)")
-    ap.add_argument("-distributed", action="store_true", help="not ported yet")
+    ap.add_argument("-sequential", action="store_true", help="single-threaded run")
+    ap.add_argument(
+        "-tmp_dir", help="artifact store: per-node/pair outputs, enables resume"
+    )
+    ap.add_argument(
+        "-distributed", action="store_true",
+        help="not ported yet (ROADMAP queue A, item 9)",
+    )
     ap.add_argument(
         "-tree", help="Newick guide-tree file (leaf names = genome names)"
     )
@@ -133,15 +142,13 @@ def _align_main(argv: list[str]) -> int:
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
-    unported = [
-        (not args.sequential, "runs without -sequential need the concurrent executor", 8),
-        (args.tmp_dir, "-tmp_dir needs the concurrent executor's artifact store", 8),
-        (args.distributed, "-distributed needs the multi-host runtime", 9),
-    ]
-    for hit, why, item in unported:
-        if hit:
-            print(f"not ported yet: {why} (ROADMAP queue A, item {item})", file=sys.stderr)
-            return 2
+    if args.distributed:
+        print(
+            "not ported yet: -distributed needs the multi-host runtime "
+            "(ROADMAP queue A, item 9)",
+            file=sys.stderr,
+        )
+        return 2
 
     from paramugsy_tpu_torch.utils.obs import METRICS, TRACE, MemoryMonitor
     from paramugsy_tpu_torch.ops.align_pair import AlignConfig
@@ -176,7 +183,16 @@ def _align_main(argv: list[str]) -> int:
         with open(args.dup_list) as f:
             cfg.dup_list = [line.strip() for line in f if line.strip()]
     cfg.progress = (lambda m: print(m, file=sys.stderr)) if args.verbose else None
-    blocks = align_fastas(paths, args.out_maf, cfg, device=device)
+    if args.sequential:
+        blocks = align_fastas(paths, args.out_maf, cfg, device=device)
+    else:
+        from paramugsy_tpu_torch.runtime.executor import align_fastas_concurrent
+
+        blocks = align_fastas_concurrent(
+            paths, args.out_maf, cfg,
+            run_size=args.run_size, chunk_size=args.nucmer_chunk_size,
+            tmp_dir=args.tmp_dir, device=device,
+        )
     print(f"wrote {args.out_maf}: {len(blocks)} blocks", file=sys.stderr)
     if args.trace:
         TRACE.save(args.trace)
@@ -226,12 +242,12 @@ def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "nucmer":
         return _nucmer_main(argv[1:])
-    if argv and argv[0] == "align":
+    if argv and argv[0] in ("align", "local"):
         return _align_main(argv[1:])
     if argv and argv[0] == "repeats":
         return _repeats_main(argv[1:])
     print(
-        "usage: python -m paramugsy_tpu_torch.cli nucmer|align|repeats ... (the "
+        "usage: python -m paramugsy_tpu_torch.cli nucmer|align|local|repeats ... (the "
         "other subcommands are not ported yet; see ROADMAP.md queue A)",
         file=sys.stderr,
     )

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from paramugsy_tpu_torch.coords.range import Range
+from paramugsy_tpu_torch.ops.engines import count_launch
 from paramugsy_tpu_torch.ops.wavefront import _launch_stream, _ptr, pack_pairs, pad_rows
 
 NEG = -(10**8)
@@ -51,7 +52,9 @@ MAX_WIDTH = 1 << 15
 _PLAIN_ROWS = 64
 
 
-def _check(a, b, a_len, b_len, rows: int, width: int) -> int:
+def _check(a, b, a_len, b_len, rows: int, width: int, kernel_width: bool = True) -> int:
+    """Validate the inputs; with `kernel_width`, also that the CUDA kernel
+    takes the width (the wrappers hold that limit on both devices)."""
     batch = a.shape[0]
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError("sequences must be int8 code tensors")
@@ -65,7 +68,7 @@ def _check(a, b, a_len, b_len, rows: int, width: int) -> int:
         raise ValueError("all inputs must be on one device")
     if rows <= 0:
         raise ValueError("rows must be positive")
-    if width & (width - 1) or not MIN_WIDTH <= width <= MAX_WIDTH:
+    if width & (width - 1) or width < MIN_WIDTH or (kernel_width and width > MAX_WIDTH):
         raise ValueError(
             f"width must be a power of two in [{MIN_WIDTH}, {MAX_WIDTH}]: the "
             f"kernel keeps the band's row in registers, 32 lanes to each of at "
@@ -87,8 +90,10 @@ def banded_dp_plain(
     gap: int = -4,
 ) -> torch.Tensor:
     """Plain PyTorch version of K3/K4: one vectorized update per row,
-    `torch.cummax` for the prefix max.  Returns uint8 [rows, batch, W]."""
-    batch = _check(a, b, a_len, b_len, rows, width)
+    `torch.cummax` for the prefix max.  Returns uint8 [rows, batch, W].
+    Any power-of-two width from MIN_WIDTH up: MAX_WIDTH is the CUDA
+    kernel's limit, which the wrappers check."""
+    batch = _check(a, b, a_len, b_len, rows, width, kernel_width=False)
     dev = a.device
     i32 = torch.int32
     half = width // 2
@@ -184,12 +189,12 @@ def _launch(a, b, a_len, b_len, rows, width, match, mismatch, gap) -> torch.Tens
 
 def _run(a, b, a_len, b_len, rows, width, match, mismatch, gap):
     """(dirs [rows, batch, W], launched?) on the inputs' device."""
+    _check(a, b, a_len, b_len, rows, width)
     if a.device.type == "cpu":
         return banded_dp_plain(
             a, b, a_len, b_len, rows=rows, width=width,
             match=match, mismatch=mismatch, gap=gap,
         ), False
-    _check(a, b, a_len, b_len, rows, width)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     return _launch(a, b, a_len, b_len, rows, width, match, mismatch, gap), True
@@ -217,7 +222,7 @@ def banded_dp(
     if a.shape[0] != 1:
         raise ValueError("banded_dp takes one pair; use banded_dp_batch")
     dirs, launched = _run(a, b, a_len, b_len, rows, width, match, mismatch, gap)
-    banded_dp.launches += launched
+    count_launch(banded_dp, launched)
     return dirs[:, 0]
 
 
@@ -239,7 +244,7 @@ def banded_dp_batch(
     """K4: direction codes of a batch of pairs, uint8 [rows, batch, W]
     (same inputs as `banded_dp`, batch rows each)."""
     dirs, launched = _run(a, b, a_len, b_len, rows, width, match, mismatch, gap)
-    banded_dp_batch.launches += launched
+    count_launch(banded_dp_batch, launched)
     return dirs
 
 
@@ -336,6 +341,28 @@ def banded_align(
         match=match, mismatch=mismatch, gap=gap,
     )
     return traceback_band(dirs.cpu().numpy(), a_len, b_len, width)
+
+
+def banded_align_plain(
+    a_codes: np.ndarray,
+    b_codes: np.ndarray,
+    *,
+    width: int,
+    chunk: int = 128,
+    match: int = 2,
+    mismatch: int = -3,
+    gap: int = -4,
+):
+    """`banded_align` on the CPU through `banded_dp_plain` alone, at any
+    power-of-two width: the host fallback of
+    `ops.extend.align_long_segment` without the native library, whose
+    width passes MAX_WIDTH once the length difference reaches 16384."""
+    A, B, al, bl = pack_pairs([(a_codes, b_codes)], torch.device("cpu"))
+    dirs = banded_dp_plain(
+        A, B, al, bl, rows=chunk_rows([len(a_codes)], chunk), width=width,
+        match=match, mismatch=mismatch, gap=gap,
+    )
+    return traceback_band(dirs[:, 0].numpy(), len(a_codes), len(b_codes), width)
 
 
 def banded_align_batch(

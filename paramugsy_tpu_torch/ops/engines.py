@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 
 import torch
 
@@ -22,17 +23,29 @@ log = logging.getLogger("paramugsy.engines")
 # engine name -> number of pairs/segments it handled in this process
 COUNTS: dict[str, int] = {}
 _logged: set[str] = set()
+# The executor's worker threads record concurrently.
+_lock = threading.Lock()
 
 
 def record(engine: str, n: int = 1) -> None:
-    COUNTS[engine] = COUNTS.get(engine, 0) + n
-    if engine not in _logged:
+    with _lock:
+        COUNTS[engine] = COUNTS.get(engine, 0) + n
+        first = engine not in _logged
         _logged.add(engine)
+    if first:
         log.info("DP engine in use: %s", engine)
 
 
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add `n` to a kernel wrapper's ``launches`` attribute (under the
+    lock: worker threads launch concurrently)."""
+    with _lock:
+        wrapper.launches += n
+
+
 def reset_counts() -> None:
-    COUNTS.clear()
+    with _lock:
+        COUNTS.clear()
 
 
 def record_seedcluster(device: torch.device, n: int = 1) -> None:

@@ -3,9 +3,10 @@
 Segments with both sides <= 4096 bp run on the native host NW engine (or
 the NumPy NW `nw_align_batch` when the native library is absent).  Longer ones
 go to the port's wavefront engine on a CUDA device; on the CPU they go
-to the native banded engine unless PARAMUGSY_DEVICE_DP=1 (see
-`engines.device_dp_enabled`).  `Scoring`, `nw_align_batch` and
-`traceback_gaps` are copied from the reference unchanged.
+to the native banded engine (the plain row-banded DP without the native
+library) unless PARAMUGSY_DEVICE_DP=1 (see `engines.device_dp_enabled`).
+`Scoring`, `nw_align_batch` and `traceback_gaps` are copied from the
+reference unchanged.
 """
 from __future__ import annotations
 
@@ -264,9 +265,12 @@ def align_segments_spans(
 def align_long_segment(
     a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring(), width: int | None = None
 ):
-    """One long segment on the native host banded engine, at band `width`
-    or, by default, the width doubling from 512 until the length
-    difference fits."""
+    """One long segment on the host banded engines, at band `width` or,
+    by default, the width doubling from 512 until the length difference
+    fits: native C++ banded first, the plain row-banded DP on the CPU
+    (`banded_align_plain`, the reference's NumPy mirror's counterpart)
+    when the native library is absent."""
+    from paramugsy_tpu_torch.ops.banded import banded_align_plain
     from paramugsy_tpu_torch.ops.native import banded_align_native
 
     if width is None:
@@ -277,10 +281,11 @@ def align_long_segment(
         np.asarray(a), np.asarray(b), width,
         scoring.match, scoring.mismatch, scoring.gap,
     )
-    if out is None:
-        raise RuntimeError(
-            "native library unavailable (build it with `make -C native`); "
-            "set PARAMUGSY_DEVICE_DP=1 to align long segments on the device"
-        )
-    engines.record("native-banded")
-    return out
+    if out is not None:
+        engines.record("native-banded")
+        return out
+    engines.record("numpy-banded")
+    return banded_align_plain(
+        np.asarray(a, np.int8), np.asarray(b, np.int8), width=width,
+        match=scoring.match, mismatch=scoring.mismatch, gap=scoring.gap,
+    )

@@ -13,6 +13,7 @@ import fcntl
 import logging
 import os
 import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
@@ -25,6 +26,9 @@ _LOCK_PATH = os.path.join(
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+# Held through the whole first load: threads that call in meanwhile wait
+# for its result instead of taking the NumPy fallbacks.
+_load_lock = threading.Lock()
 
 # Expected ABI of native/pm_native.cc (keep in sync with pm_version()):
 # a stale committed/cached .so below this version misses symbols, so the
@@ -93,13 +97,23 @@ def _load_or_build() -> Optional[ctypes.CDLL]:
 
 
 def load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
-    if _lib is not None or _tried:
+    if _tried:
         return _lib
-    _tried = True
+    with _load_lock:
+        if not _tried:
+            _load()
+    return _lib
+
+
+def _load() -> None:
+    """Load (or build) the library and declare its NW entry point; sets
+    `_lib` first and `_tried` last, so a caller that sees `_tried` sees
+    the outcome."""
+    global _lib, _tried
     lib = _load_or_build()
     if lib is None:
-        return None
+        _tried = True
+        return
     lib.pm_nw_align_batch.restype = ctypes.c_int
     lib.pm_nw_align_batch.argtypes = [
         ctypes.POINTER(ctypes.c_int8),
@@ -117,7 +131,7 @@ def load() -> Optional[ctypes.CDLL]:
         ctypes.c_int32,
     ]
     _lib = lib
-    return _lib
+    _tried = True
 
 
 def _ptr(arr: np.ndarray, typ):

@@ -26,8 +26,9 @@ reads them from copies of the rows padded on both sides (`pad_rows`), so
 it needs no bounds check.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
-it launches the kernel or raises.  Each wrapper counts its launches in
-its ``launches`` attribute.
+it launches the kernel or raises, under `torch.cuda.device` of its
+tensors, so that any thread may call it.  Each wrapper counts its
+launches in its ``launches`` attribute (`engines.count_launch`).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from paramugsy_tpu_torch.coords.range import Range
+from paramugsy_tpu_torch.ops.engines import count_launch
 
 NEG = -(10**8)
 DIAG, UP, LEFT = 0, 1, 2
@@ -229,7 +231,7 @@ def wavefront_dp(
             )
     if rc != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error {rc}")
-    wavefront_dp.launches += 1
+    count_launch(wavefront_dp)
     return dirs
 
 
@@ -327,7 +329,7 @@ def wavefront_traceback(
         )
     if rc != 0:
         raise RuntimeError(f"traceback kernel launch failed: CUDA error {rc}")
-    wavefront_traceback.launches += 1
+    count_launch(wavefront_traceback)
     return out
 
 

@@ -15,8 +15,8 @@ With ``duplications`` set, every genome is also aligned against itself
 
 The host code is copied from the reference, whose module imports JAX
 through its aligner.  `genome_pair_deltas_batch` (a chunk of genome
-pairs) is the concurrent executor's task; the executor is not ported yet
-(ROADMAP queue A, item 8).
+pairs) is the task of the concurrent executor (`runtime.executor`, the
+default ``align``), which runs the same functions on worker threads.
 """
 from __future__ import annotations
 

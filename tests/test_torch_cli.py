@@ -1,9 +1,10 @@
 """The port's nucmer CLI against the reference's, and the port's import
 boundary: no module of paramugsy_tpu_torch imports JAX or the JAX package
 (paramugsy_tpu), neither on import nor while running ``nucmer``, a
-windowed ``align_pair``, ``align -sequential -refine``, ``repeats`` and
-``align -sequential -duplications``, and no import statement in its
-sources names them."""
+windowed ``align_pair``, ``align -sequential -refine``, ``repeats``,
+``align -sequential -duplications`` and ``align`` on the concurrent
+executor with ``-tmp_dir``, and no import statement in its sources names
+them."""
 import io
 import os
 import subprocess
@@ -192,6 +193,15 @@ assert "jax" not in sys.modules, "repeats / align -duplications pulled in jax"
 assert not reference_modules(), ("self path", reference_modules())
 # One dispatch per contig: 2 (repeats) + 2 + 1 (align).
 assert engines.COUNTS.get("repeatcluster-cpu") == 5, engines.COUNTS
+# The concurrent executor (align without -sequential) with its store.
+sys.argv = ["cli", "align", args[0], args[1], "-tmp_dir", args[9],
+            "-out_maf", args[10], "-device", "cpu"]
+try:
+    runpy.run_module("paramugsy_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert "jax" not in sys.modules, "align (concurrent, -tmp_dir) pulled in jax"
+assert not reference_modules(), ("executor", reference_modules())
 print(len(names), "modules")
 """
 
@@ -206,7 +216,7 @@ def test_port_never_imports_jax(tmp_path):
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, ref_fa, qry_fa, str(tmp_path / "o.delta"),
          *genomes, str(tmp_path / "o.maf"), str(tmp_path / "self.delta"),
-         str(tmp_path / "dup.maf")],
+         str(tmp_path / "dup.maf"), str(tmp_path / "store"), str(tmp_path / "conc.maf")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr
@@ -215,3 +225,5 @@ def test_port_never_imports_jax(tmp_path):
     assert (tmp_path / "o.maf").read_text().startswith("##maf")
     assert (tmp_path / "self.delta").read_text().startswith(f"{ref_fa} {ref_fa}")
     assert (tmp_path / "dup.maf").read_text().startswith("##maf")
+    assert (tmp_path / "conc.maf").read_text().startswith("##maf")
+    assert os.listdir(tmp_path / "store" / "pairs") == ["genome_a~genome_b.delta"]

@@ -152,8 +152,7 @@ def test_config_from_dict_and_convert_round_trip(tmp_path):
 
 @pytest.mark.parametrize(
     "flags, item",
-    [([], "item 8"), (["-sequential", "-tmp_dir", "x"], "item 8"),
-     (["-sequential", "-distributed"], "item 9")],
+    [(["-sequential", "-distributed"], "item 9"), (["-distributed"], "item 9")],
 )
 def test_unported_align_options_exit_2(family, tmp_path, capsys, flags, item):
     argv = ["align", *family[:2], "-out_maf", str(tmp_path / "o.maf"), *flags, "-device", "cpu"]
