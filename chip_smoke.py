@@ -97,16 +97,37 @@ result line:
    ``nodes/`` is deleted (no seeding, 151 launches of each again), all
    at phase 6's digest.  Their walls print beside phases 5 and 6's.
 
+12. ``mugsy -colinear`` on the realistic fixture over precomputed
+   pairwise MAFs: the port's ``nucmer`` writes them on the card for 6 of
+   its 10 genome pairs, then ``mugsy`` runs twice (first, warm): the
+   reference's MAF digest, its seeding count for the 4 pairs not covered
+   and its 151 long refine rows, each on K1 and K2.
+13. ``align -distributed``: two ranks on this card, processes started
+   with torchrun's environment (``RANK``, ``WORLD_SIZE``,
+   ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) and a timeout each,
+   sharing a fresh ``-tmp_dir`` per run; each rank reports its own counts
+   (`rank_main`).  Both ranks' MAFs must equal the reference's two-owner
+   MAF (not phases 5 and 6's: ROADMAP queue C):
+13a. the family of phase 5 at the executor's defaults, twice (first,
+   warm): the store holds the 28 pairs once, with 28 seedings summed over
+   the ranks;
+13b. the realistic fixture with ``-refine``, twice: 151 K1 and 151 K2
+   launches summed over the ranks;
+13c. ``sge`` as one process on the realistic fixture with ``-refine
+   -tmp_dir`` and the SGE-only flags: phase 6's digest.  Each rank's wall
+   and the slower rank's print beside 11a's and 11b's.
+
 Launch counters are zeroed before each path (phases 3-4 together, 2b's
-entry points, 5, 6, 7-8 together, 9-10 together and 11) and read after it.  The script
+entry points, 5, 6, 7-8 together, 9-10 together, 11, 12 and 13) and read
+after it; phase 13 adds the launches that its ranks report.  The script
 imports only the port (``paramugsy_tpu_torch``), never JAX or the JAX
 package directly.  Without
 a CUDA device it exits 2.  ``python3 chip_smoke.py --wavefront`` runs
 phases 1 and 2a only (a quick check after an edit of K1 or K2);
 ``--banded`` runs phases 1 and 2b only (after an edit of K3/K4);
 ``--profile`` runs phase 1 and traced runs of
-phases 6, 5, 11a, 7, 8, 9, 9b, 9c and 10 (device time per kernel, busy
-share).
+phases 6, 5, 11a, 13a (rank 0's second run), 7, 8, 9, 9b, 9c and 10
+(device time per kernel, busy share).
 None of them prints the result line.
 
 Each kernel's ``bound_ms`` in the ``kernels`` line is the larger of its
@@ -241,6 +262,33 @@ DUPLICATIONS_MAF_SHA256 = (
 )
 DUPLICATIONS_ENGINES = {"repeatcluster": 8, "seedcluster": 29}  # 8 contigs
 DUPLICATIONS_DUP_BLOCKS = 306
+# Phase 12, ``mugsy -colinear`` on the realistic fixture over the
+# pairwise MAFs of its first 6 genome pairs (``itertools.combinations``
+# of the sorted paths, the reference's ``nucmer -out_maf`` on each): the
+# reference's MAF digest, its seedings of the 4 pairs not covered (10
+# contig pairs) and its native-banded refine rows, computed as above at
+# commit 7130a24.  The pooled pairs give the deltas that ``align`` computes
+# for them, so the MAF is phase 6's.
+MUGSY_COVERED_PAIRS = 6
+MUGSY_MAF_SHA256 = REALISTIC_MAF_SHA256
+MUGSY_SEEDCLUSTER = 10
+MUGSY_LONG_SEGMENTS = 151
+# Phase 13, ``align -distributed`` by two ranks at the executor's defaults:
+# sha256 of the MAF that the reference's executor writes as two owners of
+# one store (`align_fastas_concurrent` with process_index 0 and 1 of 2, in
+# two threads started together, JAX_PLATFORMS=cpu, commit 7130a24), on the
+# family of phase 5 (13a) and the realistic fixture with -refine (13b).
+# They are not phases 5 and 6's digests: a merge's pair deltas come owned
+# pairs first, then the pairs waited for, and the merge depends on their
+# order (ROADMAP queue C).  Summed over the owners the reference seeded
+# the family's 28 pairs once each and sent 151 refine rows to its host
+# banded engine.
+DISTRIBUTED_FAMILY_MAF_SHA256 = (
+    "682d27960b5822a08f0f2e1a2a4b98cbae294f3111affaa5318ea9dee79f451d"
+)
+DISTRIBUTED_REALISTIC_MAF_SHA256 = (
+    "ab20be930bff05a07643803af320fb433ae9e3e798208a542aa203993d797d0c"
+)
 BANDED_WIDTHS = (64, 256, 512, 1024, 4096, 32768)
 BANDED_ALL_WIDTHS = tuple(32 << n for n in range(11))
 # Scores under which a mismatch costs more than two gaps, so that an up move
@@ -965,8 +1013,9 @@ def _zero_launches() -> None:
 
 
 def _align_run(name: str, argv: list, out: str, digest: str) -> dict:
-    """One `cli align` run: its wall, engine counts, K1/K2 launches, phase
-    times and the MAF digest check."""
+    """One CLI run that writes a MAF (``align``, ``sge``, ``mugsy``): its
+    wall, engine counts, K1/K2 launches, phase times and the MAF digest
+    check."""
     import torch
 
     from paramugsy_tpu_torch import cli
@@ -978,7 +1027,7 @@ def _align_run(name: str, argv: list, out: str, digest: str) -> dict:
     launches = _launch_counts()
     t0 = time.perf_counter()
     if cli.main(argv) != 0:
-        raise AssertionError(f"{name}: align CLI failed")
+        raise AssertionError(f"{name}: {argv[0]} CLI failed")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if file_sha256(out) != digest:
@@ -1163,6 +1212,273 @@ def print_executor_walls(smi: str, family: dict, realistic: dict, executor: dict
         }),
     ):
         print("executor_walls", json.dumps({"path": name, "card": smi, **row}), flush=True)
+
+
+def mugsy_phase(device) -> dict:
+    """12: ``mugsy -colinear`` on the realistic fixture over pairwise MAFs
+    that the port's ``nucmer`` writes on the card for the first
+    MUGSY_COVERED_PAIRS of its 10 genome pairs (first, warm): the
+    reference's MAF, the other 4 pairs seeded on the card as often as the
+    reference seeded them, and every long refine row on K1/K2."""
+    import itertools
+
+    from paramugsy_tpu_torch import cli
+
+    paths = _realistic_paths()
+    with tempfile.TemporaryDirectory() as tmp:
+        mafs = []
+        for i, (a, b) in enumerate(itertools.combinations(paths, 2)):
+            if i == MUGSY_COVERED_PAIRS:
+                break
+            mafs.append(os.path.join(tmp, f"pair{i}.maf"))
+            argv = ["nucmer", "-ref_seq", a, "-query_seq", b, "-out_maf", mafs[-1],
+                    "-device", device.type]
+            if cli.main(argv) != 0:
+                raise AssertionError(f"mugsy: nucmer of {a} and {b} failed")
+        lists = {}
+        for name, items in (("seqs", paths), ("mafs", mafs)):
+            lists[name] = os.path.join(tmp, f"{name}.list")
+            with open(lists[name], "w") as f:
+                f.write("\n".join(items) + "\n")
+        out_dir = os.path.join(tmp, "out")
+        argv = ["mugsy", "-out_dir", out_dir, "-seq_list", lists["seqs"],
+                "-maf_list", lists["mafs"], "-colinear", "-device", device.type]
+        runs = _align_runs("mugsy", argv, os.path.join(out_dir, "mugsy.maf"),
+                           MUGSY_MAF_SHA256)
+    want = {"wavefront_dp": MUGSY_LONG_SEGMENTS, "wavefront_traceback": MUGSY_LONG_SEGMENTS}
+    for r in runs:
+        if (r["engines"].get(f"seedcluster-{device.type}") != MUGSY_SEEDCLUSTER
+                or r["engines"].get("device-wavefront") != MUGSY_LONG_SEGMENTS
+                or r["launches"] != want):
+            raise AssertionError(
+                f"mugsy: {r['engines']}, launches {r['launches']}; expected "
+                f"{MUGSY_SEEDCLUSTER} seedings and {MUGSY_LONG_SEGMENTS} long rows "
+                "on K1/K2 (the reference's counts)"
+            )
+    row = {"genomes": len(paths), "covered_pairs": MUGSY_COVERED_PAIRS,
+           "first": runs[0], "warm": runs[1]}
+    print("mugsy", json.dumps(row), flush=True)
+    return row
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_main(spec_json: str) -> int:
+    """One rank of phase 13, a process that `run_ranks` starts with
+    torchrun's environment: after setting up the card and the libraries,
+    each run of ``spec["runs"]`` is one ``cli.main(run["argv"])`` (a world
+    of its own, rendezvoused on ``run["port"]``), traced when
+    ``run["trace"]``.  Prints a ``rank_run`` JSON line per run: its wall
+    and its own engine counts and K1/K2 launches."""
+    import torch
+
+    from paramugsy_tpu_torch import cli
+    from paramugsy_tpu_torch.ops import _kernels, engines, native
+    from paramugsy_tpu_torch.pipeline import METRICS
+
+    spec = json.loads(spec_json)
+    torch.zeros(1, device="cuda")
+    _kernels.library()
+    native.load()
+    for i, run in enumerate(spec["runs"]):
+        os.environ["MASTER_PORT"] = str(run["port"])
+        METRICS.phases.clear()
+        before = dict(engines.COUNTS)
+        launches = _launch_counts()
+        rc = []
+        t0 = time.perf_counter()
+        if run.get("trace"):
+            traced = _traced(lambda: rc.append(cli.main(run["argv"])))
+        else:
+            rc.append(cli.main(run["argv"]))
+            torch.cuda.synchronize()
+            traced = None
+        row = {
+            "rank": int(os.environ["RANK"]), "run": i, "rc": rc[0],
+            "wall_s": time.perf_counter() - t0,
+            "engines": _engine_delta(before),
+            "launches": {k: v - launches[k] for k, v in _launch_counts().items()},
+            "phases_s": {k: v.total_s for k, v in sorted(METRICS.phases.items())},
+            "profile": traced,
+        }
+        print("rank_run", json.dumps(row), flush=True)
+        if rc[0] != 0:
+            return rc[0]
+    return 0
+
+
+def run_ranks(runs_of: list, timeout: float) -> list:
+    """Phase 13's world: one process per entry of `runs_of` (rank i runs
+    ``runs_of[i]``, see `rank_main`), all on this card, each with
+    torchrun's environment and `timeout` seconds.  A rank that exits
+    non-zero or times out fails the phase, and every rank is stopped.
+    Returns each rank's ``rank_run`` rows and its process wall."""
+    procs = []
+    try:
+        for rank, runs in enumerate(runs_of):
+            env = dict(
+                os.environ, PYTHONPATH=ROOT, RANK=str(rank), LOCAL_RANK=str(rank),
+                WORLD_SIZE=str(len(runs_of)), MASTER_ADDR="127.0.0.1",
+            )
+            cmd = [sys.executable, "-c",
+                   "import sys, chip_smoke; sys.exit(chip_smoke.rank_main(sys.argv[1]))",
+                   json.dumps({"runs": runs})]
+            procs.append((time.perf_counter(), subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            )))
+        results = []
+        for rank, (t0, p) in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"rank {rank} timed out after {timeout} s")
+            wall = time.perf_counter() - t0
+            if p.returncode != 0:
+                raise AssertionError(f"rank {rank} exited {p.returncode}:\n{err[-4000:]}")
+            rows = [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+                    if line.startswith("rank_run ")]
+            if len(rows) != len(runs_of[rank]):
+                raise AssertionError(f"rank {rank} reported {len(rows)} runs:\n{out[-4000:]}")
+            results.append({"rows": rows, "process_wall_s": wall})
+        return results
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _distributed_runs(name: str, argv_of, digest: str, n_runs: int = 2,
+                      trace_rank0_last: bool = False) -> list:
+    """`n_runs` runs of ``align -distributed`` by two ranks on this card,
+    each run with a fresh shared ``-tmp_dir`` and its own port; both
+    ranks' MAFs must be at `digest`.  ``argv_of(out, store)`` builds a
+    rank's argv.  Returns per run: each rank's row, the summed counts, the
+    slower rank's wall and the store's pairs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        plan = []
+        for i in range(n_runs):
+            store = os.path.join(tmp, f"store{i}")
+            outs = [os.path.join(tmp, f"rank{r}_run{i}.maf") for r in (0, 1)]
+            plan.append((store, outs, _free_port()))
+        results = run_ranks(
+            [[{"argv": argv_of(outs[r], store), "port": port,
+               "trace": trace_rank0_last and r == 0 and i == n_runs - 1}
+              for i, (store, outs, port) in enumerate(plan)] for r in (0, 1)],
+            timeout=300,
+        )
+        runs = []
+        for i, (store, outs, _) in enumerate(plan):
+            for r in (0, 1):
+                if file_sha256(outs[r]) != digest:
+                    raise AssertionError(f"{name}: rank {r}'s MAF of run {i} differs "
+                                         "from the JAX reference")
+            rows = [results[r]["rows"][i] for r in (0, 1)]
+            summed = {}
+            for key in ("engines", "launches"):
+                summed[key] = {}
+                for row in rows:
+                    for k, v in row[key].items():
+                        summed[key][k] = summed[key].get(k, 0) + v
+            runs.append({
+                "ranks": rows, "summed": summed,
+                "slower_wall_s": max(row["wall_s"] for row in rows),
+                "pairs": sorted(os.listdir(os.path.join(store, "pairs"))),
+            })
+    print(name, "process_walls_s", json.dumps([r["process_wall_s"] for r in results]),
+          flush=True)
+    return runs
+
+
+def distributed_family_phase(device) -> dict:
+    """13a: the 8 x 2 Mbp family through ``align -distributed`` at the
+    executor's defaults, two ranks (first, warm): the reference's
+    two-owner digest on both, the 28 pairs once in the store, 28 seedings
+    summed over the ranks as they report them."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = family_fastas(tmp, FAMILY_BP, FAMILY_COUNT)
+        runs = _distributed_runs(
+            "distributed_family",
+            lambda out, store: _executor_argv(paths, out, device)
+            + ["-distributed", "-tmp_dir", store],
+            DISTRIBUTED_FAMILY_MAF_SHA256,
+        )
+    for r in runs:
+        seeded = r["summed"]["engines"].get(f"seedcluster-{device.type}")
+        if len(r["pairs"]) != FAMILY_SEEDCLUSTER or seeded != FAMILY_SEEDCLUSTER:
+            raise AssertionError(
+                f"distributed_family: {len(r['pairs'])} pairs in the store, {seeded} "
+                f"seedings summed; expected {FAMILY_SEEDCLUSTER} of each"
+            )
+        _check_no_degrade("distributed_family", [r["summed"]])
+    row = {"genomes": FAMILY_COUNT, "bp": FAMILY_BP, "first": runs[0], "warm": runs[1]}
+    print("distributed_family", json.dumps(row), flush=True)
+    return row
+
+
+def distributed_realistic_phase(device) -> dict:
+    """13b: the realistic fixture through ``align -distributed -refine``,
+    two ranks (first, warm): the reference's two-owner digest on both, and
+    151 K1 and 151 K2 launches summed over the ranks (each merge runs on
+    its owner)."""
+    paths = _realistic_paths()
+    runs = _distributed_runs(
+        "distributed_realistic",
+        lambda out, store: _executor_argv(paths, out, device)
+        + ["-refine", "-distributed", "-tmp_dir", store],
+        DISTRIBUTED_REALISTIC_MAF_SHA256,
+    )
+    for r in runs:
+        _check_refine_run("distributed_realistic", r["summed"])
+        _check_no_degrade("distributed_realistic", [r["summed"]])
+    row = {"genomes": len(paths), "first": runs[0], "warm": runs[1]}
+    print("distributed_realistic", json.dumps(row), flush=True)
+    return row
+
+
+def sge_phase(device) -> dict:
+    """13c: ``sge`` as one process on the realistic fixture with
+    ``-refine -tmp_dir`` and the SGE-only flags: phase 6's digest."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "realistic.maf")
+        argv = ["sge", *_realistic_paths(), "-refine", "-tmp_dir", os.path.join(tmp, "store"),
+                "-template_file", "/dev/null", "-exec_q", "all.q", "-data_q", "all.q",
+                "-out_maf", out, "-device", device.type]
+        r = _align_run("sge", argv, out, REALISTIC_MAF_SHA256)
+    _check_refine_run("sge", r)
+    print("sge", json.dumps(r), flush=True)
+    return r
+
+
+def print_distributed_walls(smi: str, executor: dict, distributed: dict) -> None:
+    """Phase 13's walls, first and warm in seconds: each rank's and the
+    slower rank's, beside phase 11's one-process executor on the same
+    inputs; 13c's beside 11c's first run."""
+    def walls(row, key="wall_s"):
+        return [row["first"][key], row["warm"][key]]
+
+    for name, ex, dist in (
+        ("family", executor["family"], distributed["family"]),
+        ("realistic_refine", executor["realistic"], distributed["realistic"]),
+    ):
+        print("distributed_walls", json.dumps({
+            "path": name, "card": smi, "executor": walls(ex),
+            "rank_walls": [[dist[k]["ranks"][r]["wall_s"] for k in ("first", "warm")]
+                           for r in (0, 1)],
+            "slower_rank": walls(dist, "slower_wall_s"),
+        }), flush=True)
+    print("distributed_walls", json.dumps({
+        "path": "realistic_refine_tmp_dir", "card": smi,
+        "executor_first": executor["resume"]["first"]["wall_s"],
+        "sge": distributed["sge"]["wall_s"],
+    }), flush=True)
 
 
 def windowed_pair_phase(device) -> dict:
@@ -1428,8 +1744,6 @@ def _profile_run(name: str, run, output_ok) -> dict:
     and the busy share of the traced wall.  ``output_ok()`` must hold
     after the traced run."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     walls = []
     for _ in range(3):
@@ -1438,13 +1752,25 @@ def _profile_run(name: str, run, output_ok) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     _zero_launches()
+    row = {"untraced_warm_s": walls[1:], **_traced(run)}
+    if not output_ok():
+        raise AssertionError(f"{name}: output differs from the JAX reference")
+    print(f"profile_{name}", json.dumps(row), flush=True)
+    return row
+
+
+def _traced(run) -> dict:
+    """`run()` once under torch.profiler: the traced wall, device time per
+    kernel (sum of CUDA self time), the busy share and K1/K2 launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
-    if not output_ok():
-        raise AssertionError(f"{name}: output differs from the JAX reference")
     kernels = {}
     for ev in prof.key_averages():
         # Device events only (kernels, copies): a CPU operator's self device
@@ -1456,8 +1782,8 @@ def _profile_run(name: str, run, output_ok) -> dict:
             kernels[ev.key] = (ms, ev.count)
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    row = {
-        "untraced_warm_s": walls[1:], "traced_s": traced,
+    return {
+        "traced_s": traced,
         "device_busy_ms": busy if busy else "not measured",
         "busy_share": busy / 1e3 / traced if busy else "not measured",
         "launches": _launch_counts(),
@@ -1468,8 +1794,6 @@ def _profile_run(name: str, run, output_ok) -> dict:
             if "wavefront_reg_kernel" in k or "traceback_kernel" in k
         },
     }
-    print(f"profile_{name}", json.dumps(row), flush=True)
-    return row
 
 
 def profile_realistic() -> dict:
@@ -1507,6 +1831,27 @@ def profile_executor_family() -> dict:
         out = os.path.join(tmp, "family.maf")
         argv = _executor_argv(paths, out, torch.device("cuda"))
         return _profile_cli("executor_family", argv, out, file_sha256, FAMILY_MAF_SHA256)
+
+
+def profile_distributed_family() -> dict:
+    """Phase 13a traced: two ranks run the 8 x 2 Mbp family through
+    ``align -distributed`` twice; rank 0's second run is traced (its busy
+    share beside `profile_executor_family`'s)."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = family_fastas(tmp, FAMILY_BP, FAMILY_COUNT)
+        runs = _distributed_runs(
+            "profile_distributed_family",
+            lambda out, store: _executor_argv(paths, out, torch.device("cuda"))
+            + ["-distributed", "-tmp_dir", store],
+            DISTRIBUTED_FAMILY_MAF_SHA256, trace_rank0_last=True,
+        )
+    row = {"untraced_first_s": runs[0]["ranks"][0]["wall_s"],
+           "rank1_walls_s": [r["ranks"][1]["wall_s"] for r in runs],
+           **runs[1]["ranks"][0]["profile"]}
+    print("profile_distributed_family", json.dumps(row), flush=True)
+    return row
 
 
 def profile_windowed_pair() -> dict:
@@ -1639,6 +1984,7 @@ def main(argv: list[str]) -> int:
         profile_realistic()
         profile_family(windowed=False)
         profile_executor_family()
+        profile_distributed_family()
         profile_windowed_pair()
         profile_family(windowed=True)
         profile_repeats(windowed=False)
@@ -1731,9 +2077,36 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"K1/K2 never launched from the executor: {executor_launches}")
     print_executor_walls(smi, family_row, realistic_row, executor_rows)
 
+    # Phase 12: mugsy over precomputed pairwise MAFs.
+    _zero_launches()
+    mugsy_phase(device)
+    mugsy_launches = _launch_counts()
+    print("main_path_launches", json.dumps({"mugsy": mugsy_launches}), flush=True)
+    if min(mugsy_launches.values()) <= 0:
+        raise AssertionError(f"K1/K2 never launched under mugsy -colinear: {mugsy_launches}")
+
+    # Phase 13: align -distributed, two ranks on this card, and sge.  The
+    # ranks' launches are their own processes' counts, as they report them.
+    _zero_launches()
+    distributed_rows = {
+        "family": distributed_family_phase(device),
+        "realistic": distributed_realistic_phase(device),
+        "sge": sge_phase(device),
+    }
+    distributed_launches = _launch_counts()
+    for k in distributed_launches:
+        for name in ("family", "realistic"):
+            for run in ("first", "warm"):
+                distributed_launches[k] += distributed_rows[name][run]["summed"]["launches"][k]
+    print("main_path_launches", json.dumps({"distributed": distributed_launches}), flush=True)
+    if min(distributed_launches.values()) <= 0:
+        raise AssertionError(f"K1/K2 never launched by the ranks: {distributed_launches}")
+    print_distributed_walls(smi, executor_rows, distributed_rows)
+
     launches = {
         k: pair_launches[k] + family_launches[k] + refine_launches[k]
         + windowed_launches[k] + self_launches[k] + executor_launches[k]
+        + mugsy_launches[k] + distributed_launches[k]
         for k in pair_launches
     }
     k4_main = next(r for r in banded["k4"] if r["width"] == 512)

@@ -1,14 +1,20 @@
 """Command-line entry of the port (counterpart of paramugsy_tpu.cli).
 
-Four subcommands are ported so far, the pairwise one, the multiple
-alignment (``local`` is another name for ``align``, as in the reference)
-and the genome-vs-self repeats:
+The reference's device subcommands are ported: the pairwise one, the
+multiple alignment (``local`` is another name for ``align``, as in the
+reference, and ``sge`` is ``align -distributed``), the merge over
+precomputed pairwise MAFs and the genome-vs-self repeats:
 
     python -m paramugsy_tpu_torch.cli nucmer -ref_seq a.fa -query_seq b.fa \\
         -out_delta o.delta [-out_maf o.maf] [-device cuda|cpu]
     python -m paramugsy_tpu_torch.cli align|local g1.fa g2.fa ... \\
         -out_maf out.maf [-run_size 4] [-nucmer_chunk_size 16] [-tmp_dir d] \\
-        [-sequential] [-refine] [-duplications] [-device cuda|cpu]
+        [-sequential] [-distributed] [-refine] [-duplications] [-device cuda|cpu]
+    python -m paramugsy_tpu_torch.cli sge g1.fa g2.fa ... -out_maf out.maf \\
+        -tmp_dir d [-template_file f] [-exec_q q] [-data_q q] [-device cuda|cpu]
+    python -m paramugsy_tpu_torch.cli mugsy -out_dir d -seq_list genomes.txt \\
+        [-maf_list mafs.txt] [-basename mugsy] [-colinear] [-skipunique] \\
+        [-dup_list dups.txt] [-device cuda|cpu]
     python -m paramugsy_tpu_torch.cli repeats -seq g.fa [-out_delta o.delta] \\
         [-out_maf o.maf] [-minlength 65] [-device cuda|cpu]
 
@@ -17,8 +23,12 @@ device (``cuda`` by default, which raises without a card; ``cpu`` runs
 the plain versions of the kernels).  ``align`` runs the concurrent job-tree
 executor (`runtime.executor`: ``-run_size`` worker threads, pairs in
 chunks of ``-nucmer_chunk_size``, resumable through the ``-tmp_dir``
-artifact store) unless ``-sequential`` is given; ``-distributed`` exits 2
-naming the ROADMAP item that will port it.
+artifact store) unless ``-sequential`` is given.  With ``-distributed``
+it joins the ``torch.distributed`` world that torchrun's environment
+describes (`runtime.dist`): the ranks split the pairs and merges and
+exchange them through one shared ``-tmp_dir``, and every rank writes its
+own ``-out_maf``.  The sharded data plane of the reference (tensors across
+ranks) is not ported yet (ROADMAP queue A, A9b).
 """
 from __future__ import annotations
 
@@ -128,7 +138,8 @@ def _align_main(argv: list[str]) -> int:
     )
     ap.add_argument(
         "-distributed", action="store_true",
-        help="not ported yet (ROADMAP queue A, item 9)",
+        help="join the torch.distributed world of torchrun's environment; "
+        "pairs and merges partition across the ranks sharing -tmp_dir",
     )
     ap.add_argument(
         "-tree", help="Newick guide-tree file (leaf names = genome names)"
@@ -141,14 +152,6 @@ def _align_main(argv: list[str]) -> int:
     ap.add_argument("-device", default="cuda", help="torch device: cuda or cpu")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
-
-    if args.distributed:
-        print(
-            "not ported yet: -distributed needs the multi-host runtime "
-            "(ROADMAP queue A, item 9)",
-            file=sys.stderr,
-        )
-        return 2
 
     from paramugsy_tpu_torch.utils.obs import METRICS, TRACE, MemoryMonitor
     from paramugsy_tpu_torch.ops.align_pair import AlignConfig
@@ -186,13 +189,25 @@ def _align_main(argv: list[str]) -> int:
     if args.sequential:
         blocks = align_fastas(paths, args.out_maf, cfg, device=device)
     else:
+        from paramugsy_tpu_torch.runtime import dist
         from paramugsy_tpu_torch.runtime.executor import align_fastas_concurrent
 
+        process_index, process_count = 0, 1
+        if args.distributed:
+            ctx = dist.init_distributed()
+            process_index, process_count = ctx.process_index, ctx.process_count
+            device = dist.rank_device(device)
         blocks = align_fastas_concurrent(
             paths, args.out_maf, cfg,
             run_size=args.run_size, chunk_size=args.nucmer_chunk_size,
-            tmp_dir=args.tmp_dir, device=device,
+            tmp_dir=args.tmp_dir,
+            process_index=process_index, process_count=process_count,
+            device=device,
         )
+        if args.distributed:
+            # Reached only by a rank that succeeded: one that raised leaves
+            # without the barrier, and the others' barrier fails with it.
+            dist.shutdown_distributed(ctx)
     print(f"wrote {args.out_maf}: {len(blocks)} blocks", file=sys.stderr)
     if args.trace:
         TRACE.save(args.trace)
@@ -200,6 +215,100 @@ def _align_main(argv: list[str]) -> int:
     if args.stats:
         print(METRICS.report(), file=sys.stderr)
         print(f"peak_rss_kb\t{MemoryMonitor._rss_kb()}", file=sys.stderr)
+    return 0
+
+
+def _sge_main(argv: list[str]) -> int:
+    """The reference's ``paramugsy sge`` mode (lib/base/paramugsy.ml:232-248).
+
+    Cluster scheduling + rsync staging are superseded by torch.distributed +
+    a shared artifact store: this maps to ``align -distributed`` and warns
+    about SGE-only flags it absorbs (-template_file, -exec_q, -data_q).
+    """
+    passthrough: list[str] = []
+    skip_next = False
+    absorbed = []
+    for a in argv:
+        if skip_next:
+            skip_next = False
+            continue
+        if a in ("-template_file", "-template-file", "-exec_q", "-exec-q",
+                 "-data_q", "-data-q"):
+            absorbed.append(a)
+            skip_next = True
+            continue
+        passthrough.append(a)
+    if absorbed:
+        print(
+            f"sge: flags {absorbed} are superseded by torch.distributed + "
+            "the shared -tmp_dir artifact store; ignoring",
+            file=sys.stderr,
+        )
+    if "-distributed" not in passthrough:
+        passthrough.append("-distributed")
+    return _align_main(passthrough)
+
+
+def _mugsy_main(argv: list[str]) -> int:
+    """The mugsy_mugsy worker role (lib/mugsy/mugsy_mugsy.ml): one
+    multi-genome LCB call over precomputed pairwise MAFs; the pairs they
+    do not cover are aligned on `-device`."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="paramugsy_tpu_torch mugsy")
+    ap.add_argument("-out_dir", required=True)
+    ap.add_argument("-basename", default="mugsy")
+    ap.add_argument("-seq_list", required=True, help="file listing genome FASTAs")
+    ap.add_argument(
+        "-maf_list", help="file listing pairwise MAF paths (pairs not "
+        "covered are aligned on the device)"
+    )
+    ap.add_argument("-minlength", type=int, default=30)
+    ap.add_argument("-distance", type=int, default=200)
+    ap.add_argument("-colinear", action="store_true", help="refine colinear role")
+    ap.add_argument("-skipunique", action="store_true")
+    ap.add_argument("-dup_list", help="file listing duplication MAF paths")
+    ap.add_argument("-device", default="cuda", help="torch device: cuda or cpu")
+    args = ap.parse_args(argv)
+
+    import os
+
+    from paramugsy_tpu_torch.formats.delta_maf import maf_blocks_to_deltas
+    from paramugsy_tpu_torch.formats.maf import MAF_HEADER, read_maf, write_maf
+    from paramugsy_tpu_torch.ops.align_pair import AlignConfig
+    from paramugsy_tpu_torch.pipeline import (
+        Aligner,
+        PipelineConfig,
+        finalize_blocks,
+        gather_dup_blocks,
+        load_genome,
+    )
+    from paramugsy_tpu_torch.utils.platform import resolve_device
+
+    def read_list(path):
+        with open(path) as f:
+            return [line.strip() for line in f if line.strip()]
+
+    device = resolve_device(args.device)
+    genomes = [load_genome(p) for p in read_list(args.seq_list)]
+    pool = []
+    for maf in read_list(args.maf_list) if args.maf_list else []:
+        pool.extend(maf_blocks_to_deltas(read_maf(maf)))
+    cfg = PipelineConfig(
+        min_length=args.minlength,
+        emit_unique=not args.skipunique,
+        refine=args.colinear,
+        dup_list=read_list(args.dup_list) if args.dup_list else [],
+        align=AlignConfig(break_len=args.distance),
+    )
+    aligner = Aligner(genomes, cfg, delta_pool=pool, device=device)
+    blocks = finalize_blocks(
+        aligner.run(), gather_dup_blocks(genomes, cfg, device=aligner.device)
+    )
+    os.makedirs(args.out_dir, exist_ok=True)
+    out_maf = os.path.join(args.out_dir, f"{args.basename}.maf")
+    write_maf(out_maf, blocks, header=MAF_HEADER)
+    print(out_maf)  # the reference prints the produced MAF path
     return 0
 
 
@@ -244,11 +353,16 @@ def main(argv: list[str] | None = None) -> int:
         return _nucmer_main(argv[1:])
     if argv and argv[0] in ("align", "local"):
         return _align_main(argv[1:])
+    if argv and argv[0] == "sge":
+        return _sge_main(argv[1:])
+    if argv and argv[0] == "mugsy":
+        return _mugsy_main(argv[1:])
     if argv and argv[0] == "repeats":
         return _repeats_main(argv[1:])
     print(
-        "usage: python -m paramugsy_tpu_torch.cli nucmer|align|local|repeats ... (the "
-        "other subcommands are not ported yet; see ROADMAP.md queue A)",
+        "usage: python -m paramugsy_tpu_torch.cli "
+        "nucmer|align|local|sge|mugsy|repeats ... (the host-only subcommands "
+        "are not ported yet; see ROADMAP.md queue A)",
         file=sys.stderr,
     )
     return 2

@@ -4,12 +4,16 @@ The sources have a plain C interface, so ``nvcc`` compiles them in
 seconds (one compiler per source, in parallel) into one shared library,
 loaded with ctypes.  The build runs on first CUDA use, from the sources in
 the checkout, into ``paramugsy_tpu_torch/build/`` (listed in .gitignore),
-and again whenever a source is newer than the library.  Nothing here runs
-at import time.
+and again whenever a source is newer than the library.  Processes that
+start together (the ranks of ``align -distributed``) build it once: the
+staleness check and the build run under an exclusive ``flock`` on
+``build/kernels.lock``, and the library is renamed into place whole.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -24,6 +28,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libpm_kernels.so")
 # The compiler's report (registers, shared memory, spills per kernel).
 LOG_PATH = os.path.join(BUILD_DIR, "nvcc.log")
+# Held across the staleness check and the build, between processes.
+LOCK_PATH = os.path.join(BUILD_DIR, "kernels.lock")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lib: ctypes.CDLL | None = None
@@ -73,10 +79,18 @@ def _run_all(cmds: list[list[str]]) -> None:
 
 def build() -> str:
     """Compile the kernels (when stale; one nvcc per source, all at once,
-    then one link) and return the library path."""
-    if not _stale():
-        return LIB_PATH
+    then one link) and return the library path.  Another process that
+    builds at the same time waits for this one and finds the library
+    current."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(LOCK_PATH, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _stale():
+            _build()
+    return LIB_PATH
+
+
+def _build() -> None:
     open(LOG_PATH, "w").close()
     tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
@@ -93,7 +107,6 @@ def build() -> str:
         os.replace(lib, LIB_PATH)
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
-    return LIB_PATH
 
 
 def library() -> ctypes.CDLL:

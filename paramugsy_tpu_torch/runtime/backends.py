@@ -12,7 +12,10 @@ Here the seam is a Backend protocol over Python callables:
   of local_interface.ml's 10x/5s retry loop;
 * RecordingBackend — the Test_server pattern: records every submission for
   single-process tests of multi-node logic;
-* (multi-host runs are not ported yet: ROADMAP queue A, item 9.)
+* multi-process runs (``align -distributed``, `runtime.dist`) have no
+  backend of their own: each rank runs the executor's scheduler, and the
+  ranks meet in the shared ``-tmp_dir`` store (the sharded data plane is
+  ROADMAP queue A, A9b).
 """
 from __future__ import annotations
 

@@ -337,8 +337,8 @@ def align_fastas_concurrent(
 
     With ``tmp_dir``, artifacts persist for inspection/resume; with
     ``process_count > 1``, pairwise work is deterministically partitioned
-    across hosts sharing ``tmp_dir`` (no launcher of such processes is
-    ported yet: ROADMAP queue A, item 9).
+    across processes sharing ``tmp_dir`` (the ranks of ``align
+    -distributed``, `runtime.dist`).
     """
     from paramugsy_tpu_torch.formats.maf import MAF_HEADER, write_maf
     from paramugsy_tpu_torch.pipeline import finalize_blocks, gather_dup_blocks, load_genome

@@ -2,9 +2,9 @@
 boundary: no module of paramugsy_tpu_torch imports JAX or the JAX package
 (paramugsy_tpu), neither on import nor while running ``nucmer``, a
 windowed ``align_pair``, ``align -sequential -refine``, ``repeats``,
-``align -sequential -duplications`` and ``align`` on the concurrent
-executor with ``-tmp_dir``, and no import statement in its sources names
-them."""
+``align -sequential -duplications``, ``align`` on the concurrent
+executor with ``-tmp_dir``, ``mugsy`` and ``align -distributed``, and no
+import statement in its sources names them."""
 import io
 import os
 import subprocess
@@ -109,15 +109,18 @@ def test_port_sources_import_neither_jax_nor_the_reference():
     sources = []
     for dirpath, _, files in os.walk(os.path.join(ROOT, "paramugsy_tpu_torch")):
         sources += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
-    assert len(sources) >= 35
+    assert len(sources) >= 36
+    assert os.path.join(ROOT, "paramugsy_tpu_torch", "runtime", "dist.py") in sources
     for path in sources:
         bad = _imported_tops(path) & {"jax", "jaxlib", "paramugsy_tpu"}
         assert not bad, (os.path.relpath(path, ROOT), bad)
 
 
-def test_cli_unknown_subcommand_returns_2():
-    assert port_cli.main(["mugsy"]) == 2
+def test_cli_unknown_subcommand_returns_2(capsys):
+    """A name that no command of the reference has, and no command."""
+    assert port_cli.main(["blastz"]) == 2
     assert port_cli.main([]) == 2
+    assert "nucmer|align|local|sge|mugsy|repeats" in capsys.readouterr().err
 
 
 _NO_JAX = r"""
@@ -145,7 +148,7 @@ if not torch.cuda.is_available():
     else:
         raise AssertionError("cuda without a card must raise")
 sys.argv = ["cli", "nucmer", "-ref_seq", args[0], "-query_seq", args[1],
-            "-out_delta", args[2], "-device", "cpu"]
+            "-out_delta", args[2], "-out_maf", args[11], "-device", "cpu"]
 try:
     runpy.run_module("paramugsy_tpu_torch.cli", run_name="__main__")
 except SystemExit as e:
@@ -202,6 +205,26 @@ except SystemExit as e:
     assert e.code == 0, e.code
 assert "jax" not in sys.modules, "align (concurrent, -tmp_dir) pulled in jax"
 assert not reference_modules(), ("executor", reference_modules())
+# mugsy over the nucmer MAF, and align -distributed as one process.
+with open(args[12], "w") as f:
+    f.write(args[0] + "\n" + args[1] + "\n")
+with open(args[13], "w") as f:
+    f.write(args[11] + "\n")
+sys.argv = ["cli", "mugsy", "-out_dir", args[14], "-seq_list", args[12],
+            "-maf_list", args[13], "-device", "cpu"]
+try:
+    runpy.run_module("paramugsy_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+sys.argv = ["cli", "align", "-distributed", args[0], args[1], "-tmp_dir", args[15],
+            "-out_maf", args[16], "-device", "cpu"]
+try:
+    runpy.run_module("paramugsy_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert "torch.distributed" in sys.modules
+assert "jax" not in sys.modules, "mugsy / align -distributed pulled in jax"
+assert not reference_modules(), ("mugsy / distributed", reference_modules())
 print(len(names), "modules")
 """
 
@@ -212,18 +235,26 @@ def test_port_never_imports_jax(tmp_path):
         os.path.join(ROOT, "tests", "data", "realistic", f) for f in ("g0.fa", "g1.fa", "g2.fa")
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
-    env.pop("PARAMUGSY_DEVICE_DP", None)
+    for name in ("PARAMUGSY_DEVICE_DP", "MASTER_ADDR"):
+        env.pop(name, None)
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, ref_fa, qry_fa, str(tmp_path / "o.delta"),
          *genomes, str(tmp_path / "o.maf"), str(tmp_path / "self.delta"),
-         str(tmp_path / "dup.maf"), str(tmp_path / "store"), str(tmp_path / "conc.maf")],
+         str(tmp_path / "dup.maf"), str(tmp_path / "store"), str(tmp_path / "conc.maf"),
+         str(tmp_path / "pair.maf"), str(tmp_path / "seqs.list"),
+         str(tmp_path / "mafs.list"), str(tmp_path / "mugsy"),
+         str(tmp_path / "dist_store"), str(tmp_path / "dist.maf")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 20
+    assert int(res.stdout.split()[-2]) >= 20
     assert (tmp_path / "o.delta").read_text().startswith(ref_fa)
     assert (tmp_path / "o.maf").read_text().startswith("##maf")
     assert (tmp_path / "self.delta").read_text().startswith(f"{ref_fa} {ref_fa}")
     assert (tmp_path / "dup.maf").read_text().startswith("##maf")
     assert (tmp_path / "conc.maf").read_text().startswith("##maf")
     assert os.listdir(tmp_path / "store" / "pairs") == ["genome_a~genome_b.delta"]
+    mugsy = (tmp_path / "mugsy" / "mugsy.maf").read_text()
+    assert mugsy.startswith("##maf") and "mult=2" in mugsy
+    assert res.stdout.splitlines()[0] == str(tmp_path / "mugsy" / "mugsy.maf")
+    assert (tmp_path / "dist.maf").read_bytes() == (tmp_path / "conc.maf").read_bytes()

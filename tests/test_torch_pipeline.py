@@ -151,14 +151,31 @@ def test_config_from_dict_and_convert_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flags, item",
-    [(["-sequential", "-distributed"], "item 9"), (["-distributed"], "item 9")],
+    "flags",
+    [["-sequential", "-distributed"], ["-distributed", "-tmp_dir", "{side}_store"]],
 )
-def test_unported_align_options_exit_2(family, tmp_path, capsys, flags, item):
-    argv = ["align", *family[:2], "-out_maf", str(tmp_path / "o.maf"), *flags, "-device", "cpu"]
-    assert port_cli.main(argv) == 2
-    assert item in capsys.readouterr().err
-    assert not (tmp_path / "o.maf").exists()
+def test_unported_align_options_exit_2(family, tmp_path, monkeypatch, flags):
+    """``-distributed``, once refused with exit 2, with no world
+    configured: with -sequential it runs the sequential path and joins no
+    world; without, one process of the executor over its -tmp_dir store.
+    Either way the MAF (and store) are the reference's, byte for byte."""
+    import torch.distributed as dist
+
+    for name in ("MASTER_ADDR", "JAX_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(name, raising=False)
+
+    def argv(side):
+        extra = [f.replace("{side}", str(tmp_path / side)) for f in flags]
+        return ["align", *family[:2], "-out_maf", str(tmp_path / f"{side}.maf"), *extra]
+
+    assert ref_cli.main(argv("ref")) == 0
+    assert port_cli.main([*argv("port"), "-device", "cpu"]) == 0
+    assert not dist.is_initialized()
+    assert (tmp_path / "port.maf").read_bytes() == (tmp_path / "ref.maf").read_bytes()
+    if "-tmp_dir" in flags:
+        stores = [sorted(os.listdir(tmp_path / f"{side}_store" / "pairs"))
+                  for side in ("ref", "port")]
+        assert stores[0] == stores[1] == ["q0~q1.delta"]
 
 
 def test_align_duplications_cli_equals_reference(tmp_path):
