@@ -117,16 +117,39 @@ result line:
    -tmp_dir`` and the SGE-only flags: phase 6's digest.  Each rank's wall
    and the slower rank's print beside 11a's and 11b's.
 
+14. The sharded data plane (``paramugsy_tpu_torch.parallel``) in a
+   torch.distributed world of this process alone, NCCL on the card with
+   a gloo side group (`one_rank_world`), each part at the digest of the
+   reference's output:
+14a. the multi-device dry run's pair step on 16 x 2048 pairs, gathered
+   through the NCCL group, and its distance step on 8 x 1024 0/1
+   sketches (an exact Jaccard matrix);
+14b. ``align_fastas_sharded`` on the family of phase 5 twice (first,
+   warm): phase 5's digest, its 28 rows seeded in one batch;
+14c. the realistic fixture with refinement twice: phase 6's digest, the
+   CPU rehearsal's 33 seedings, and 151 K1 and 151 K2 launches a run
+   (printed as predicted before the runs);
+14d. the windowed pair of phase 7 twice: its 4 window pairs as rows of
+   one 4 Mbp bucket, with the reckoned and the measured peak device
+   memory;
+14e. the compile check's single-pair step (``find_seeds`` +
+   ``cluster_seeds`` on a 2^15 pair).  14b's walls print beside 11a's
+   and 13a's.
+
 Launch counters are zeroed before each path (phases 3-4 together, 2b's
-entry points, 5, 6, 7-8 together, 9-10 together, 11, 12 and 13) and read
-after it; phase 13 adds the launches that its ranks report.  The script
+entry points, 5, 6, 7-8 together, 9-10 together, 11, 12, 13 and 14) and
+read after it; phase 13 adds the launches that its ranks report.  The script
 imports only the port (``paramugsy_tpu_torch``), never JAX or the JAX
 package directly.  Without
 a CUDA device it exits 2.  ``python3 chip_smoke.py --wavefront`` runs
 phases 1 and 2a only (a quick check after an edit of K1 or K2);
 ``--banded`` runs phases 1 and 2b only (after an edit of K3/K4);
+``--sharded`` runs phases 1 and 14 only; ``--sharded-ranks`` runs
+phase 1, 14b in one process, and 14b by 2 and by 4 ranks of an NCCL
+world, one card each (on a machine with four cards), with 14a's steps
+gathered and all-reduced across them (`run_sharded_ranks`);
 ``--profile`` runs phase 1 and traced runs of
-phases 6, 5, 11a, 13a (rank 0's second run), 7, 8, 9, 9b, 9c and 10
+phases 6, 5, 11a, 13a (rank 0's second run), 14b, 7, 8, 9, 9b, 9c and 10
 (device time per kernel, busy share).
 None of them prints the result line.
 
@@ -289,6 +312,34 @@ DISTRIBUTED_FAMILY_MAF_SHA256 = (
 DISTRIBUTED_REALISTIC_MAF_SHA256 = (
     "ab20be930bff05a07643803af320fb433ae9e3e798208a542aa203993d797d0c"
 )
+# Phase 14, the sharded data plane (paramugsy_tpu.parallel), digests of
+# the reference's outputs on the CPU with eight forced host devices,
+# computed at commit 3075b5b: its dry run's pair step on `graft_pair_batch`
+# over an 8-device ``pairs`` mesh (the int32 fields of PAIR_FIELDS, in
+# order; `arrays_sha256`) and its distance step over a 1 x 8 ``kdim`` mesh
+# (the float32 matrix); its compile check's step on `graft_entry_pair`
+# (14e); and the MAFs of its ``align_fastas_sharded`` on the family of
+# phase 5 (14b), the realistic fixture with refine (14c: phase 6's digest
+# and its 151 long refine segments) and the windowed pair of phase 7
+# (14d).  14b's reference ran its batch two pairs at a time and 14d's on
+# one device: every row of those inputs has one bucket, so a row's
+# result does not depend on the rows beside it.  The seedings are the
+# port's CPU rehearsal of the same runs (one per batch row, plus any
+# single-pair retry).
+SHARDED_PAIR_STEP_SHA256 = (
+    "050844786ba4cac3c346e77c51bd2ef58741b99f50a973646e9f7e77bf4d5e4e"
+)
+SHARDED_DISTANCE_SHA256 = (
+    "8e887dda6264e01d90ef82130717703917b5ac1124c618c3fc59a5b2927ed248"
+)
+GRAFT_ENTRY_SHA256 = (
+    "122657be7006874370f4ff8cb981f1f1d690bc09ed9cce7c79d1f2aefd9ee8ca"
+)
+SHARDED_REALISTIC_MAF_SHA256 = REALISTIC_MAF_SHA256
+SHARDED_REALISTIC_SEEDCLUSTER = 33
+SHARDED_WINDOWED_MAF_SHA256 = (
+    "05e431e2e80107a565e507c00e703492eacdc814305d9684a54d15b2c8771df4"
+)
 BANDED_WIDTHS = (64, 256, 512, 1024, 4096, 32768)
 BANDED_ALL_WIDTHS = tuple(32 << n for n in range(11))
 # Scores under which a mismatch costs more than two gaps, so that an up move
@@ -369,6 +420,36 @@ def windowed_config(directory: str) -> str:
     with open(path, "w") as f:
         json.dump({"align": MBP_WINDOW}, f)
     return path
+
+
+def graft_pair_batch(n_slots: int = 8):
+    """The multi-device dry run's inputs (``__graft_entry__``'s
+    ``dryrun_multichip`` recipe for `n_slots` devices): a pair batch of
+    ``2 * n_slots`` random 2048 bp refs with their queries rotated by 256,
+    and eight 0/1 sketches of ``128 * n_slots`` columns, from one
+    ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    n = 2048
+    refs = rng.integers(0, 4, size=(2 * n_slots, n)).astype(np.int8)
+    queries = np.roll(refs, n // 8, axis=1)
+    sketches = (rng.random((8, 128 * n_slots)) < 0.1).astype(np.float32)
+    return refs, queries, sketches
+
+
+def graft_entry_pair():
+    """The single-pair compile check's input (``__graft_entry__``'s
+    ``entry``): 2^15 random bases and the same rotated by a quarter."""
+    n = 1 << 15
+    ref = np.random.default_rng(0).integers(0, 4, size=n).astype(np.int8)
+    return ref, np.concatenate([ref[n // 4 :], ref[: n // 4]])
+
+
+def arrays_sha256(arrays, dtype=np.int32) -> str:
+    """sha256 over the arrays' values as `dtype`, in order."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a).astype(dtype)).tobytes())
+    return h.hexdigest()
 
 
 def island_pair(n: int = HEADLINE_BP, n_islands: int = 4, length: int = 5000):
@@ -1481,6 +1562,321 @@ def print_distributed_walls(smi: str, executor: dict, distributed: dict) -> None
     }), flush=True)
 
 
+class one_rank_world:
+    """A torch.distributed world of this process alone on the card (NCCL,
+    with its gloo side group), formed on entry from torchrun's environment
+    (``MASTER_ADDR=127.0.0.1``, ``WORLD_SIZE=1``) and left on exit, the
+    environment restored."""
+
+    _ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        from paramugsy_tpu_torch.runtime import dist
+
+        self.saved = {k: os.environ.get(k) for k in self._ENV}
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                          RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        self.ctx = dist.init_distributed(device=self.device)
+        return self.ctx
+
+    def __exit__(self, *exc):
+        from paramugsy_tpu_torch.runtime import dist
+
+        dist.shutdown_distributed(self.ctx)
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def graft_steps_phase(device) -> dict:
+    """14a: the multi-device dry run's checks through the one-rank world:
+    `make_sharded_pair_step` on `graft_pair_batch` (k 16, 1 << 10 seeds,
+    128 clusters; the gather goes through NCCL) and
+    `make_sharded_distance_step` on its 0/1 sketches, each at the
+    reference's digest.  14e: the compile check's single-pair step
+    (`find_seeds` + `cluster_seeds` on `graft_entry_pair`)."""
+    import torch
+
+    from paramugsy_tpu_torch.ops.chaining import cluster_seeds
+    from paramugsy_tpu_torch.ops.seeding import find_seeds
+    from paramugsy_tpu_torch.parallel.mesh import make_mesh
+    from paramugsy_tpu_torch.parallel.pair_shard import (
+        PAIR_FIELDS,
+        make_sharded_distance_step,
+        make_sharded_pair_step,
+    )
+
+    refs, queries, sketches = graft_pair_batch(8)
+    mesh = make_mesh(devices=[device])
+    step = make_sharded_pair_step(mesh, k=16, max_seeds=1 << 10, max_clusters=128)
+    args = [torch.from_numpy(x).to(device) for x in (refs, queries)]
+    out, pair_ms = _once_ms(lambda: step(*args))
+    _, pair_warm_ms = _once_ms(lambda: step(*args))
+    if arrays_sha256([out[f].cpu().numpy() for f in PAIR_FIELDS]) != SHARDED_PAIR_STEP_SHA256:
+        raise AssertionError("14a: sharded pair step differs from the JAX reference")
+    dstep = make_sharded_distance_step(mesh)
+    sk = torch.from_numpy(sketches).to(device)
+    jac, dist_ms = _once_ms(lambda: dstep(sk))
+    if arrays_sha256([jac.cpu().numpy()], np.float32) != SHARDED_DISTANCE_SHA256:
+        raise AssertionError("14a: sharded distance step differs from the JAX reference")
+    ref, query = (torch.from_numpy(x).to(device) for x in graft_entry_pair())
+
+    def entry():
+        s = find_seeds(ref, query, k=16, max_seeds=1 << 14)
+        cl = cluster_seeds(s.rpos, s.qpos, s.length, s.mask & (s.length >= 20),
+                           max_clusters=1024)
+        return [cl.c_rstart, cl.c_rend, cl.c_qstart, cl.c_qend, cl.c_weight,
+                cl.c_mask, cl.n_clusters]
+
+    got, entry_ms = _once_ms(entry)
+    _, entry_warm_ms = _once_ms(entry)
+    if arrays_sha256([x.cpu().numpy() for x in got]) != GRAFT_ENTRY_SHA256:
+        raise AssertionError("14e: find_seeds + cluster_seeds differ from the JAX reference")
+    row = {
+        "pair_step_ms": [pair_ms, pair_warm_ms],
+        "clusters": int(out["n_clusters"].sum()), "distance_ms": dist_ms,
+        "entry_ms": [entry_ms, entry_warm_ms], "entry_clusters": int(got[6]),
+    }
+    print("sharded_graft", json.dumps(row), flush=True)
+    return row
+
+
+def _sharded_runs(name: str, paths: list, digest: str, cfg=None) -> list:
+    """`align_fastas_sharded` on `paths` twice (first, warm), on the card
+    through the one-rank world: each run's wall, engine counts, K1/K2
+    launches, phase times and peak device memory; the MAF must be at
+    `digest`."""
+    import torch
+
+    from paramugsy_tpu_torch.ops import engines
+    from paramugsy_tpu_torch.parallel.collective import align_fastas_sharded
+    from paramugsy_tpu_torch.pipeline import METRICS
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, f"{name}.maf")
+        for _ in range(2):
+            METRICS.phases.clear()
+            before = dict(engines.COUNTS)
+            launches = _launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            align_fastas_sharded(paths, out, cfg=cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if file_sha256(out) != digest:
+                raise AssertionError(f"{name}: MAF differs from the JAX reference")
+            runs.append({
+                "wall_s": wall,
+                "engines": _engine_delta(before),
+                "launches": {k: v - launches[k] for k, v in _launch_counts().items()},
+                "phases_s": {k: v.total_s for k, v in sorted(METRICS.phases.items())},
+                "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
+            })
+    return runs
+
+
+def _check_seedings(name: str, runs: list, want: int) -> None:
+    for r in runs:
+        if r["engines"].get("seedcluster-cuda") != want:
+            raise AssertionError(f"{name}: seedings {r['engines']}, expected {want}")
+
+
+def sharded_family_phase() -> dict:
+    """14b: the 8 x 2 Mbp family through `align_fastas_sharded` (28 rows
+    of one 2 Mbp bucket in one batch) at phase 5's digest."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = family_fastas(tmp, FAMILY_BP, FAMILY_COUNT)
+        runs = _sharded_runs("sharded_family", paths, FAMILY_MAF_SHA256)
+    _check_seedings("sharded_family", runs, FAMILY_SEEDCLUSTER)
+    row = {"genomes": FAMILY_COUNT, "bp": FAMILY_BP, "first": runs[0], "warm": runs[1]}
+    print("sharded_family", json.dumps(row), flush=True)
+    return row
+
+
+def sharded_realistic_phase() -> dict:
+    """14c: the realistic fixture through `align_fastas_sharded` with
+    refinement at phase 6's digest: the CPU rehearsal's seedings, and its
+    long refine segments as K1 and K2 launches."""
+    from paramugsy_tpu_torch.pipeline import PipelineConfig
+
+    print("sharded_realistic predicted", json.dumps({
+        "seedcluster": SHARDED_REALISTIC_SEEDCLUSTER,
+        "wavefront_dp": REALISTIC_LONG_SEGMENTS,
+        "wavefront_traceback": REALISTIC_LONG_SEGMENTS,
+    }), flush=True)
+    runs = _sharded_runs("sharded_realistic", _realistic_paths(), SHARDED_REALISTIC_MAF_SHA256,
+                         PipelineConfig(refine=True))
+    _check_seedings("sharded_realistic", runs, SHARDED_REALISTIC_SEEDCLUSTER)
+    for r in runs:
+        _check_refine_run("sharded_realistic", r)
+    row = {"genomes": 5, "first": runs[0], "warm": runs[1]}
+    print("sharded_realistic", json.dumps(row), flush=True)
+    return row
+
+
+def sharded_windowed_phase() -> dict:
+    """14d: the 6,264,404 bp pair of phase 7 through `align_fastas_sharded`:
+    its 2 x 2 window pairs ride the batch as rows of one 4 Mbp bucket,
+    and every process assembles them after the exchange."""
+    # A row seeds 2^23 k-mers (two 2^22 buckets): ~10 int64 arrays of that
+    # length live at once in the first sort's stage, one row at a time.
+    print("sharded_windowed reckoned_peak_device_mb",
+          json.dumps(10 * 8 * (1 << 23) / 2**20), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = list(headline_fastas(tmp, WINDOWED_BP))
+        runs = _sharded_runs("sharded_windowed", paths, SHARDED_WINDOWED_MAF_SHA256)
+    _check_seedings("sharded_windowed", runs, WINDOWED_SEEDCLUSTER)
+    row = {"bp": WINDOWED_BP, "first": runs[0], "warm": runs[1]}
+    print("sharded_windowed", json.dumps(row), flush=True)
+    return row
+
+
+def sharded_rank_main(spec_json: str) -> int:
+    """One rank of `run_sharded_ranks`: joins the world of its environment
+    on ``spec["device"]`` (NCCL on its own card, gloo on the CPU), then
+    runs 14a's pair step over a mesh of every rank's slot (the gather
+    crosses the ranks) and its distance step over a ``1 x ranks`` kdim
+    mesh, each at the reference's digest, and `align_fastas_sharded` on
+    ``spec["paths"]`` twice without a store (every rank merges the whole
+    exchange, so each writes the one-process MAF, ``spec["digest"]``).
+    Prints one ``sharded_rank`` JSON line."""
+    import torch
+
+    from paramugsy_tpu_torch.ops import engines
+    from paramugsy_tpu_torch.parallel.collective import _phase_barrier, align_fastas_sharded
+    from paramugsy_tpu_torch.parallel.mesh import make_mesh
+    from paramugsy_tpu_torch.parallel.pair_shard import (
+        PAIR_FIELDS,
+        make_sharded_distance_step,
+        make_sharded_pair_step,
+    )
+    from paramugsy_tpu_torch.runtime import dist
+
+    spec = json.loads(spec_json)
+    ctx = dist.init_distributed(device=spec["device"])
+    dev = dist.rank_device(torch.device(spec["device"]))
+    n = ctx.process_count
+    refs, queries, sketches = graft_pair_batch(8)
+    out = make_sharded_pair_step(make_mesh(devices=[dev]), k=16, max_seeds=1 << 10,
+                                 max_clusters=128)(torch.from_numpy(refs).to(dev),
+                                                   torch.from_numpy(queries).to(dev))
+    if arrays_sha256([out[f].cpu().numpy() for f in PAIR_FIELDS]) != SHARDED_PAIR_STEP_SHA256:
+        raise AssertionError(f"rank {ctx.process_index}: gathered pair step differs")
+    jac = make_sharded_distance_step(make_mesh(n_pairs=1, n_kdim=n, devices=[dev]))(
+        torch.from_numpy(sketches).to(dev))
+    if arrays_sha256([jac.cpu().numpy()], np.float32) != SHARDED_DISTANCE_SHA256:
+        raise AssertionError(f"rank {ctx.process_index}: all-reduced distances differ")
+    walls = []
+    for i in range(2):
+        out_maf = os.path.join(spec["work"], f"rank{ctx.process_index}_run{i}.maf")
+        _phase_barrier("smoke")
+        before = dict(engines.COUNTS)
+        t0 = time.perf_counter()
+        align_fastas_sharded(spec["paths"], out_maf, devices=[dev])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if spec["digest"] and file_sha256(out_maf) != spec["digest"]:
+            raise AssertionError(f"rank {ctx.process_index}: MAF of run {i} differs")
+    print("sharded_rank", json.dumps({
+        "rank": ctx.process_index, "ranks": n, "device": str(dev), "walls_s": walls,
+        "engines": _engine_delta(before),
+    }), flush=True)
+    dist.shutdown_distributed(ctx)
+    return 0
+
+
+def run_sharded_ranks(n: int, device_type: str, paths: list, digest, work: str,
+                      timeout: float = 600) -> list:
+    """`n` processes of `sharded_rank_main`, rank i on ``cuda:i`` (one card
+    each: NCCL refuses two ranks on one card) or on the CPU; a rank that
+    fails or times out fails the run, and every rank is stopped.  Returns
+    each rank's row with its process wall.  Every rank's MAF must be
+    byte-identical to rank 0's."""
+    port = _free_port()
+    spec = json.dumps({"device": device_type, "paths": paths, "digest": digest, "work": work})
+    procs = []
+    try:
+        for rank in range(n):
+            env = dict(os.environ, PYTHONPATH=ROOT, RANK=str(rank), LOCAL_RANK=str(rank),
+                       WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            cmd = [sys.executable, "-c",
+                   "import sys, chip_smoke; sys.exit(chip_smoke.sharded_rank_main(sys.argv[1]))",
+                   spec]
+            procs.append((time.perf_counter(), subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            )))
+        rows = []
+        for rank, (t0, p) in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"sharded rank {rank} timed out after {timeout} s")
+            if p.returncode != 0:
+                raise AssertionError(f"sharded rank {rank} exited {p.returncode}:\n{err[-4000:]}")
+            row = next(json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+                       if line.startswith("sharded_rank "))
+            rows.append({**row, "process_wall_s": time.perf_counter() - t0})
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i in range(2):
+        mafs = {file_sha256(os.path.join(work, f"rank{r}_run{i}.maf")) for r in range(n)}
+        if len(mafs) != 1:
+            raise AssertionError(f"{n} sharded ranks wrote {len(mafs)} different MAFs")
+    return rows
+
+
+def sharded_ranks_phase(smi: str) -> None:
+    """14b across cards: the family through `align_fastas_sharded` in one
+    process (the one-rank world), then by 2 and by 4 ranks, each on its
+    own card, as many as there are cards; every rank's MAF at phase 5's
+    digest.  Prints the walls side by side."""
+    import torch
+
+    device = torch.device("cuda")
+    with one_rank_world(device):
+        one = sharded_family_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = family_fastas(tmp, FAMILY_BP, FAMILY_COUNT)
+        for n in (2, 4):
+            if torch.cuda.device_count() < n:
+                continue
+            rows = run_sharded_ranks(n, "cuda", paths, FAMILY_MAF_SHA256, tmp)
+            seeded = sum(r["engines"].get("seedcluster-cuda", 0) for r in rows)
+            if seeded != FAMILY_SEEDCLUSTER:
+                raise AssertionError(f"{n} ranks seeded {seeded} rows in the last run")
+            print("sharded_ranks_walls", json.dumps({
+                "path": "family", "card": smi, "ranks": n,
+                "one_process": [one[k]["wall_s"] for k in ("first", "warm")],
+                "rank_walls": [r["walls_s"] for r in rows],
+                "slower_rank": [max(r["walls_s"][i] for r in rows) for i in (0, 1)],
+                "rank_process_walls_s": [r["process_wall_s"] for r in rows],
+            }), flush=True)
+
+
+def print_sharded_walls(smi: str, executor: dict, distributed: dict, sharded: dict) -> None:
+    """Phase 14b's walls beside 11a's one-process executor and 13a's
+    slower rank on the same family (first, warm, seconds)."""
+    print("sharded_walls", json.dumps({
+        "path": "family", "card": smi,
+        "sharded": [sharded["family"][k]["wall_s"] for k in ("first", "warm")],
+        "executor": [executor["family"][k]["wall_s"] for k in ("first", "warm")],
+        "distributed_slower_rank": [distributed["family"][k]["slower_wall_s"]
+                                    for k in ("first", "warm")],
+    }), flush=True)
+
+
 def windowed_pair_phase(device) -> dict:
     """The 6.26 Mbp pair through the nucmer CLI twice (first, warm): both
     contigs exceed the 4 Mbp window, so the pair runs as a 2 x 2 grid of
@@ -1854,6 +2250,24 @@ def profile_distributed_family() -> dict:
     return row
 
 
+def profile_sharded_family() -> dict:
+    """Phase 14b traced: the 8 x 2 Mbp family through
+    `align_fastas_sharded` in the one-rank world (beside
+    `profile_executor_family`)."""
+    import torch
+
+    from paramugsy_tpu_torch.parallel.collective import align_fastas_sharded
+
+    device = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp, one_rank_world(device):
+        paths = family_fastas(tmp, FAMILY_BP, FAMILY_COUNT)
+        out = os.path.join(tmp, "family.maf")
+        return _profile_run(
+            "sharded_family", lambda: align_fastas_sharded(paths, out),
+            lambda: file_sha256(out) == FAMILY_MAF_SHA256,
+        )
+
+
 def profile_windowed_pair() -> dict:
     """The 6.26 Mbp windowed pair (phase 7) through ``nucmer``, traced."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -1980,11 +2394,24 @@ def main(argv: list[str]) -> int:
     if argv == ["--banded"]:
         check_banded(device, reps=3)
         return 0
+    if argv == ["--sharded"]:
+        _zero_launches()
+        with one_rank_world(device):
+            graft_steps_phase(device)
+            sharded_family_phase()
+            sharded_realistic_phase()
+            sharded_windowed_phase()
+        print("main_path_launches", json.dumps({"sharded": _launch_counts()}), flush=True)
+        return 0
+    if argv == ["--sharded-ranks"]:
+        sharded_ranks_phase(smi)
+        return 0
     if argv == ["--profile"]:
         profile_realistic()
         profile_family(windowed=False)
         profile_executor_family()
         profile_distributed_family()
+        profile_sharded_family()
         profile_windowed_pair()
         profile_family(windowed=True)
         profile_repeats(windowed=False)
@@ -1993,7 +2420,10 @@ def main(argv: list[str]) -> int:
         profile_duplications()
         return 0
     if argv:
-        raise SystemExit(f"usage: {sys.argv[0]} [--wavefront | --banded | --profile]")
+        raise SystemExit(
+            f"usage: {sys.argv[0]} "
+            "[--wavefront | --banded | --sharded | --sharded-ranks | --profile]"
+        )
 
     # Phase 2: kernels against their plain versions, at the bench shape
     # and at every band width up to one past the register kernel's.
@@ -2103,10 +2533,25 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"K1/K2 never launched by the ranks: {distributed_launches}")
     print_distributed_walls(smi, executor_rows, distributed_rows)
 
+    # Phase 14: the sharded data plane in a one-rank NCCL world on this card.
+    _zero_launches()
+    with one_rank_world(device):
+        graft_steps_phase(device)
+        sharded_rows = {
+            "family": sharded_family_phase(),
+            "realistic": sharded_realistic_phase(),
+            "windowed": sharded_windowed_phase(),
+        }
+    sharded_launches = _launch_counts()
+    print("main_path_launches", json.dumps({"sharded": sharded_launches}), flush=True)
+    if min(sharded_launches.values()) <= 0:
+        raise AssertionError(f"K1/K2 never launched on the sharded path: {sharded_launches}")
+    print_sharded_walls(smi, executor_rows, distributed_rows, sharded_rows)
+
     launches = {
         k: pair_launches[k] + family_launches[k] + refine_launches[k]
         + windowed_launches[k] + self_launches[k] + executor_launches[k]
-        + mugsy_launches[k] + distributed_launches[k]
+        + mugsy_launches[k] + distributed_launches[k] + sharded_launches[k]
         for k in pair_launches
     }
     k4_main = next(r for r in banded["k4"] if r["width"] == 512)

@@ -27,8 +27,9 @@ artifact store) unless ``-sequential`` is given.  With ``-distributed``
 it joins the ``torch.distributed`` world that torchrun's environment
 describes (`runtime.dist`): the ranks split the pairs and merges and
 exchange them through one shared ``-tmp_dir``, and every rank writes its
-own ``-out_maf``.  The sharded data plane of the reference (tensors across
-ranks) is not ported yet (ROADMAP queue A, A9b).
+own ``-out_maf``.  The sharded data plane (tensors across ranks,
+`parallel.collective.align_fastas_sharded`) has no command, as in the
+reference: it is reached through its Python API.
 """
 from __future__ import annotations
 
@@ -361,8 +362,9 @@ def main(argv: list[str] | None = None) -> int:
         return _repeats_main(argv[1:])
     print(
         "usage: python -m paramugsy_tpu_torch.cli "
-        "nucmer|align|local|sge|mugsy|repeats ... (the host-only subcommands "
-        "are not ported yet; see ROADMAP.md queue A)",
+        "nucmer|align|local|sge|mugsy|repeats ... (the host-only subcommands, "
+        "profiles and the MAF tools, are not ported yet; see ROADMAP.md "
+        "queue A, A10b-2)",
         file=sys.stderr,
     )
     return 2

@@ -12,7 +12,10 @@ scatter-then-sort, which sorts a 2^shift-times smaller buffer.
 `find_repeat_seeds`, the self path's seeding, pairs adjacent occurrences
 of each k-mer over the forward and reverse-complement streams of one
 sequence.  Both seed sets are clustered per strand (or repeat type) and
-packed in one layout (`_cluster_packed`).
+packed in one layout (`_cluster_packed`); `seed_cluster_both_packed_batch`
+packs a batch of pairs row by row (the sharded data plane's step).
+`find_seeds` is the reference's forward-strand seeder, which its
+single-pair compile check runs.
 
 The values left in masked output slots are garbage that still reaches the
 packed vector, so those are reproduced too (see `_carry_last_marked`).
@@ -66,6 +69,125 @@ def _carry_last_marked(mark: torch.Tensor, payload: torch.Tensor):
     if n and n & (n - 1) == 0:
         out[-1] = torch.where(seen[-1], out[-1], payload[0])
     return seen, out
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to int32, as the reference's int32 arithmetic
+    wraps them."""
+    return ((x + 2**31) & M32) - 2**31
+
+
+def _stable_order(*keys: torch.Tensor) -> torch.Tensor:
+    """The permutation of a stable sort by `keys`, most significant first
+    (one stable pass per key, least significant first)."""
+    order = None
+    for key in reversed(keys):
+        k = key if order is None else key[order]
+        _, o = torch.sort(k, stable=True)
+        order = o if order is None else order[o]
+    return order
+
+
+class SeedMatches(NamedTuple):
+    """Maximal unique exact matches of one strand (device tensors, fixed
+    size, masked)."""
+
+    rpos: torch.Tensor
+    qpos: torch.Tensor
+    length: torch.Tensor
+    mask: torch.Tensor
+    n_raw: torch.Tensor
+    n_runs: torch.Tensor
+
+
+def find_seeds(
+    ref_codes: torch.Tensor,
+    query_codes: torch.Tensor,
+    *,
+    k: int = 16,
+    max_seeds: int = 1 << 16,
+    unique_in_query: bool = False,
+) -> SeedMatches:
+    """Forward-strand maximal exact matches unique in the reference (and in
+    the query with `unique_in_query`), the reference's first seeder (see
+    paramugsy_tpu.ops.seeding.find_seeds).
+
+    Its sorts are stable sorts of the same keys, and its int32 position
+    sums wrap as the reference's do: the slots past the valid runs hold
+    the reference's values too."""
+    dev = ref_codes.device
+    rk, rvalid = kmer_codes(ref_codes, k)
+    qk, qvalid = kmer_codes(query_codes, k)
+    n_r, n_q = rk.shape[0], qk.shape[0]
+    n = n_r + n_q
+
+    def arange(m):
+        return torch.arange(m, device=dev, dtype=torch.int64)
+
+    # One sort by (validity, code), refs before queries within a code.
+    invalid = torch.cat([~rvalid, ~qvalid]).to(torch.int64)
+    codes = torch.cat([rk, qk])
+    order = _stable_order((invalid << 32) | codes)
+    invalid, codes = invalid[order], codes[order]
+    is_ref = (order < n_r).to(torch.int64)
+    pos = torch.cat([arange(n_r), arange(n_q)])[order]
+    valid = invalid == 0
+
+    idx = arange(n)
+    is_start = valid & ((codes != torch.roll(codes, 1)) | (idx == 0))
+    seg_start = torch.cummax(torch.where(is_start, idx, -1), 0).values
+    nxt = _suffix_min(torch.where(is_start, idx, BIG))
+    nxt_after = torch.cat([nxt[1:], torch.full((1,), BIG, device=dev, dtype=torch.int64)])
+    seg_end = torch.clamp(nxt_after - 1, max=n - 1)
+
+    ref_in = (is_ref == 1) & valid
+    query_in = (is_ref == 0) & valid
+
+    def seg_sum(x):
+        cum = torch.cumsum(x, 0)
+        lo = torch.where(seg_start > 0, cum[torch.clamp(seg_start - 1, min=0)], 0)
+        return cum[seg_end] - lo
+
+    ref_count = seg_sum(ref_in.to(torch.int64))
+    is_match = valid & query_in & (ref_count == 1)
+    if unique_in_query:
+        is_match = is_match & (seg_sum(query_in.to(torch.int64)) == 1)
+    rpos = _wrap32(seg_sum(torch.where(ref_in, pos, 0)))
+    qpos = pos
+    n_raw = is_match.sum()
+
+    # Every slot re-sorted by (match first, diagonal, rpos) for run merging.
+    diag = _wrap32(rpos - qpos)
+    order = _stable_order((~is_match).to(torch.int64), diag, rpos)
+    diag_c, rpos_c, qpos_c, mask_c = diag[order], rpos[order], qpos[order], is_match[order]
+
+    prev_mask = torch.roll(mask_c, 1) & (idx > 0)
+    run_start = mask_c & (
+        ~prev_mask
+        | (diag_c != torch.roll(diag_c, 1))
+        | (qpos_c != torch.roll(qpos_c, 1) + 1)
+    )
+    next_continues = (
+        torch.roll(mask_c, -1)
+        & (torch.roll(diag_c, -1) == diag_c)
+        & (torch.roll(qpos_c, -1) == qpos_c + 1)
+    )
+    is_run_end = mask_c & ((idx == n - 1) | ~next_continues)
+    run_start_idx = torch.cummax(torch.where(run_start, idx, -1), 0).values
+    first = torch.clamp(run_start_idx, min=0)
+    n_runs = is_run_end.sum()
+
+    # Compaction: run ends first, each group in its order.
+    _, order = torch.sort((~is_run_end).to(torch.int64), stable=True)
+    order = order[: min(max_seeds, n)]
+    return SeedMatches(
+        rpos=rpos_c[first][order],
+        qpos=qpos_c[first][order],
+        length=(idx - run_start_idx + k)[order],
+        mask=is_run_end[order],
+        n_raw=n_raw,
+        n_runs=n_runs,
+    )
 
 
 def auto_sample_shift(n_total: int) -> int:
@@ -298,6 +420,44 @@ def seed_cluster_both_packed(
     return _cluster_packed(
         seeds, min_match=min_match, band=band, max_gap=max_gap,
         max_clusters=max_clusters, m_out=m_out, c_out=c_out,
+    )
+
+
+def seed_cluster_both_packed_batch(
+    ref_codes: torch.Tensor,
+    query_codes: torch.Tensor,
+    q_len: torch.Tensor,
+    *,
+    k: int = 15,
+    max_seeds: int = 1 << 16,
+    unique_in_query: bool = False,
+    min_match: int = 20,
+    band: int = 16,
+    max_gap: int = 90,
+    max_clusters: int = 4096,
+    sample_shift: int = 0,
+    merge_gap: int | None = None,
+    compact_slice: bool | None = None,
+    m_out: int | None = None,
+    c_out: int | None = None,
+) -> torch.Tensor:
+    """`seed_cluster_both_packed` over a batch of pairs of one bucket
+    shape: ``[B, N_r]`` / ``[B, N_q]`` codes and the rows' query lengths
+    ``[B]`` -> packed int32 ``[B, L]``, row i being row i's own packed
+    vector.  ``compact_slice`` picks between two forms of the reference's
+    that give the same output; it is accepted and ignored."""
+    del compact_slice
+    return torch.stack(
+        [
+            seed_cluster_both_packed(
+                ref_codes[i], query_codes[i], q_len[i],
+                k=k, max_seeds=max_seeds, unique_in_query=unique_in_query,
+                min_match=min_match, band=band, max_gap=max_gap,
+                max_clusters=max_clusters, sample_shift=sample_shift,
+                merge_gap=merge_gap, m_out=m_out, c_out=c_out,
+            )
+            for i in range(ref_codes.shape[0])
+        ]
     )
 
 

@@ -14,8 +14,9 @@ Here the seam is a Backend protocol over Python callables:
   single-process tests of multi-node logic;
 * multi-process runs (``align -distributed``, `runtime.dist`) have no
   backend of their own: each rank runs the executor's scheduler, and the
-  ranks meet in the shared ``-tmp_dir`` store (the sharded data plane is
-  ROADMAP queue A, A9b).
+  ranks meet in the shared ``-tmp_dir`` store (the sharded data plane,
+  `parallel.collective`, exchanges tensors and entries over
+  ``torch.distributed`` collectives instead).
 """
 from __future__ import annotations
 

@@ -109,8 +109,10 @@ def test_port_sources_import_neither_jax_nor_the_reference():
     sources = []
     for dirpath, _, files in os.walk(os.path.join(ROOT, "paramugsy_tpu_torch")):
         sources += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
-    assert len(sources) >= 36
+    assert len(sources) >= 41
     assert os.path.join(ROOT, "paramugsy_tpu_torch", "runtime", "dist.py") in sources
+    for name in ("wire", "mesh", "pair_shard", "collective"):
+        assert os.path.join(ROOT, "paramugsy_tpu_torch", "parallel", f"{name}.py") in sources
     for path in sources:
         bad = _imported_tops(path) & {"jax", "jaxlib", "paramugsy_tpu"}
         assert not bad, (os.path.relpath(path, ROOT), bad)
@@ -225,6 +227,14 @@ except SystemExit as e:
 assert "torch.distributed" in sys.modules
 assert "jax" not in sys.modules, "mugsy / align -distributed pulled in jax"
 assert not reference_modules(), ("mugsy / distributed", reference_modules())
+# The sharded data plane on two cpu slots, and the single-pair seeder.
+from paramugsy_tpu_torch.parallel.collective import align_fastas_sharded
+from paramugsy_tpu_torch.ops.seeding import find_seeds
+align_fastas_sharded([args[0], args[1]], args[17], devices=["cpu", "cpu"])
+find_seeds(torch.zeros(64, dtype=torch.int8), torch.zeros(64, dtype=torch.int8), k=16)
+assert "jax" not in sys.modules, "the sharded plane pulled in jax"
+assert not reference_modules(), ("sharded", reference_modules())
+assert "paramugsy_tpu_torch.parallel.pair_shard" in names
 print(len(names), "modules")
 """
 
@@ -243,7 +253,8 @@ def test_port_never_imports_jax(tmp_path):
          str(tmp_path / "dup.maf"), str(tmp_path / "store"), str(tmp_path / "conc.maf"),
          str(tmp_path / "pair.maf"), str(tmp_path / "seqs.list"),
          str(tmp_path / "mafs.list"), str(tmp_path / "mugsy"),
-         str(tmp_path / "dist_store"), str(tmp_path / "dist.maf")],
+         str(tmp_path / "dist_store"), str(tmp_path / "dist.maf"),
+         str(tmp_path / "sharded.maf")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr
@@ -258,3 +269,4 @@ def test_port_never_imports_jax(tmp_path):
     assert mugsy.startswith("##maf") and "mult=2" in mugsy
     assert res.stdout.splitlines()[0] == str(tmp_path / "mugsy" / "mugsy.maf")
     assert (tmp_path / "dist.maf").read_bytes() == (tmp_path / "conc.maf").read_bytes()
+    assert (tmp_path / "sharded.maf").read_bytes() == (tmp_path / "conc.maf").read_bytes()
