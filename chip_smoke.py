@@ -136,8 +136,25 @@ result line:
    ``cluster_seeds`` on a 2^15 pair).  14b's walls print beside 11a's
    and 13a's.
 
+15. The host-only commands (``profiles`` and the MAF and delta tools:
+   host code, as in the reference, with no kernel of their own), each
+   step's exit codes, stdout and output files held against the
+   reference's digest (`HOST_TOOLS_SHA256`):
+15a. ``mafstat``, ``mafvalidate``, ``mafdefrag -synchain``, ``maffiller``
+   (given the genomes' FASTA files), ``analyzer``, ``mafclean`` and
+   ``profiles maf_to_xmfa`` on phase 5's family MAF and on phase 6's
+   ``-refine`` MAF, then ``sortdelta`` on phase 3's delta and ``fastafmt``
+   on its reference FASTA (`host_tool_steps`);
+15b. the profile toolchain of a tree merge over the family's halves q0-q3
+   and q4-q7 (`profile_chain_steps`): ``align -sequential`` of each on the
+   card, ``profiles make`` of each MAF, ``nucmer`` on the card for the 16
+   cross pairs, ``profiles translate`` of their deltas, the MAF of the
+   translated entries as the merge step makes it, ``profiles
+   untranslate`` of it and ``mafvalidate`` of the result.  The steps'
+   host walls print beside the card's name and power limit.
+
 Launch counters are zeroed before each path (phases 3-4 together, 2b's
-entry points, 5, 6, 7-8 together, 9-10 together, 11, 12, 13 and 14) and
+entry points, 5, 6, 7-8 together, 9-10 together, 11, 12, 13, 14 and 15) and
 read after it; phase 13 adds the launches that its ranks report.  The script
 imports only the port (``paramugsy_tpu_torch``), never JAX or the JAX
 package directly.  Without
@@ -340,6 +357,41 @@ SHARDED_REALISTIC_SEEDCLUSTER = 33
 SHARDED_WINDOWED_MAF_SHA256 = (
     "05e431e2e80107a565e507c00e703492eacdc814305d9684a54d15b2c8771df4"
 )
+# Phase 15, the host-only commands: sha256 over each step's exit codes,
+# stdout and output files (`_host_step`), as the reference's commands give
+# them (JAX_PLATFORMS=cpu, commit 27e3f0c) on the reference's own outputs
+# of phases 3, 5 and 6, which equal the port's (their digests above), and
+# on the halves q0-q3 and q4-q7 of phase 5's family (`profile_chain_steps`:
+# the reference's align and nucmer on the CPU).  Its family and -refine
+# MAFs tile every genome, so mafvalidate finds no fault and maffiller adds
+# no block; the merge step keeps 14 translated entries.
+HOST_TOOLS_SHA256 = {
+    "family/mafstat": "a8046cd108b5a7cbc1e862f83a67e2f238b5c308a587bccf1413cb705111cb04",
+    "family/mafvalidate": "c14196f132c1e9be0508ae80ab52fcb3e1d3fc05880415f3dc980971df207c9e",
+    "family/mafdefrag": "3f23f66307aab84b10b91aa503c524bda7357c49ab32e2a666a11a35c75532aa",
+    "family/maffiller": "27fcf33b04ab67e3301ae1310c2826d1523cb78f81237e67e61253958e38ba31",
+    "family/analyzer": "e83db9e959e3b910ffcb8b54feb4ce8abc9f55411a6d6b21925acf250c2b75d2",
+    "family/mafclean": "27fcf33b04ab67e3301ae1310c2826d1523cb78f81237e67e61253958e38ba31",
+    "family/maf_to_xmfa": "34a0adc314f8f0eba5412ea84b89297ac7e401002673be5f6d3cc06e71edfc30",
+    "realistic/mafstat": "1f091ec2e39e9fb9ab807b27e6037c40e2dfbd91a416ed7f4e1fd1c99f318887",
+    "realistic/mafvalidate": "c14196f132c1e9be0508ae80ab52fcb3e1d3fc05880415f3dc980971df207c9e",
+    "realistic/mafdefrag": "967a3eed165e80aa8f8e509df318c06b25330b40431a22cdef40fd679ea5b88b",
+    "realistic/maffiller": "71f65bcc027242dd98cea1272bc421736b9a7dfa61fa5d052251a86206e1e0fe",
+    "realistic/analyzer": "e83db9e959e3b910ffcb8b54feb4ce8abc9f55411a6d6b21925acf250c2b75d2",
+    "realistic/mafclean": "71f65bcc027242dd98cea1272bc421736b9a7dfa61fa5d052251a86206e1e0fe",
+    "realistic/maf_to_xmfa": "24cd2a0eab1d35552802752cdeaab083fc8b7fc4affbdd677f1ef069e2bcbaaa",
+    "headline/sortdelta": "e406ae9508f6a6c6bc57641dd950dd4d9b52fe2db53a90721df78426efde5d77",
+    "headline/fastafmt": "78bc5499afcd5555a19fd06dbf478f7247563e64a1188ab202ed3381987d5ab6",
+    "profiles/align_left": "4ffee67433293d9bf51fc8f2fdb5ee1b90c6b66ec3f4724da8c3552caef74595",
+    "profiles/make_left": "cd1a4f637edb3c61fd61282a5edd00ccda2febc1d1841bd12610351003f0732b",
+    "profiles/align_right": "1302ab20228f858aa98f3de3a0724a720798cb6f5d5440715ead53b6957116c9",
+    "profiles/make_right": "2adfede7e2d4444778fa208e3469fad033f8132d8ec2ab811b76919e461d1e86",
+    "profiles/nucmer": "793db7f08968b9f58b3a1c5e903811fee72574f6fb55c4eb53241d750b42d8bd",
+    "profiles/translate": "9e15973f247314961ff6daae0eebb335eb5cdc89bd635e862d1bac4624a89722",
+    "profiles/merge_maf": "e30ddc15ea1eb9b4d2cdbb5c03370f4bc32816a3bc72df3c4bf022104a6d303b",
+    "profiles/untranslate": "3f511162eba2086135265138fea90fe3dcc213f6a2325fc1bbb685bcfa3196f9",
+    "profiles/mafvalidate": "618f92a8f9501dfb5dff7c847d15d653771c868e2a44890c5129d16cd1c70d1e",
+}
 BANDED_WIDTHS = (64, 256, 512, 1024, 4096, 32768)
 BANDED_ALL_WIDTHS = tuple(32 << n for n in range(11))
 # Scores under which a mismatch costs more than two gaps, so that an up move
@@ -998,8 +1050,9 @@ def _engine_delta(before: dict) -> dict:
     }
 
 
-def headline_phase(device) -> dict:
-    """The bench pair through the nucmer CLI: one warm-up, best of 3."""
+def headline_phase(device, keep: str) -> dict:
+    """The bench pair through the nucmer CLI: one warm-up, best of 3.  The
+    delta and the reference FASTA are copied to `keep` for phase 15."""
     import torch
 
     from paramugsy_tpu_torch import cli
@@ -1023,6 +1076,8 @@ def headline_phase(device) -> dict:
             walls.append(time.perf_counter() - t0)
         with open(out) as f:
             text = f.read()
+        shutil.copy(out, os.path.join(keep, "headline.delta"))
+        shutil.copy(ref_fa, os.path.join(keep, "smoke_ref.fa"))
     if sha256(delta_body(text)) != HEADLINE_DELTA_SHA256:
         raise AssertionError("headline delta differs from the JAX reference")
     aligned = aligned_bp(text)
@@ -1128,13 +1183,18 @@ def _align_runs(name: str, argv: list, out: str, digest: str) -> list:
     return [_align_run(name, argv, out, digest) for _ in range(2)]
 
 
-def family_phase(device) -> dict:
-    """The 8 x 2 Mbp family through ``align -sequential`` (first, warm)."""
+def family_phase(device, keep: str) -> dict:
+    """The 8 x 2 Mbp family through ``align -sequential`` (first, warm).
+    Its FASTA files and MAF are copied to `keep` for phase 15."""
     with tempfile.TemporaryDirectory() as tmp:
         paths = family_fastas(tmp, FAMILY_BP, FAMILY_COUNT)
         out = os.path.join(tmp, "family.maf")
         argv = ["align", "-sequential", *paths, "-out_maf", out, "-device", device.type]
         runs = _align_runs("family", argv, out, FAMILY_MAF_SHA256)
+        os.makedirs(os.path.join(keep, "family"))
+        for path in paths:
+            shutil.copy(path, os.path.join(keep, "family"))
+        shutil.copy(out, os.path.join(keep, "family.maf"))
     for r in runs:
         if r["engines"].get(f"seedcluster-{device.type}") != FAMILY_SEEDCLUSTER:
             raise AssertionError(
@@ -1157,9 +1217,10 @@ def _realistic_paths() -> list:
     return paths
 
 
-def realistic_phase(device) -> dict:
+def realistic_phase(device, keep: str) -> dict:
     """The realistic fixture through ``align -sequential -refine`` (first,
-    warm): every long refine segment on K1/K2."""
+    warm): every long refine segment on K1/K2.  The MAF is copied to
+    `keep` for phase 15."""
     paths = _realistic_paths()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "realistic.maf")
@@ -1168,6 +1229,7 @@ def realistic_phase(device) -> dict:
             "-device", device.type,
         ]
         runs = _align_runs("realistic", argv, out, REALISTIC_MAF_SHA256)
+        shutil.copy(out, os.path.join(keep, "realistic.maf"))
     for r in runs:
         if r["engines"].get("device-wavefront") != REALISTIC_LONG_SEGMENTS:
             raise AssertionError(
@@ -2122,6 +2184,166 @@ def duplications_phase(device) -> dict:
     return row
 
 
+def port_modules():
+    """The port's functions that phase 15 drives (`host_tool_steps`,
+    `profile_chain_steps`); the reference's namesakes give its digests."""
+    from types import SimpleNamespace
+
+    from paramugsy_tpu_torch import cli
+    from paramugsy_tpu_torch.formats import read_delta, read_fasta, write_maf
+    from paramugsy_tpu_torch.formats.delta_maf import delta_to_maf_blocks
+    from paramugsy_tpu_torch.lcb.merge import select_consistent
+
+    return SimpleNamespace(
+        cli=cli, read_delta=read_delta, read_fasta=read_fasta, write_maf=write_maf,
+        delta_to_maf_blocks=delta_to_maf_blocks, select_consistent=select_consistent,
+    )
+
+
+def _host_step(cli, step: str, argvs: list, outputs=()) -> dict:
+    """Commands through ``cli.main`` with their stdout captured: the wall,
+    the exit codes and one sha256 over the exit codes, the stdout and the
+    `outputs` files (a ``.delta`` file without its two header lines, which
+    name the input paths)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    rcs = []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        for argv in argvs:
+            rcs.append(cli.main(argv))
+    wall = time.perf_counter() - t0
+    h = hashlib.sha256(f"{rcs}\n{buf.getvalue()}".encode())
+    for path in outputs:
+        with open(path) as f:
+            text = f.read()
+        h.update((delta_body(text) if path.endswith(".delta") else text).encode())
+    return {"step": step, "wall_s": wall, "rcs": rcs, "sha256": h.hexdigest()}
+
+
+def host_tool_steps(cli, mafs: dict, fastas: dict, delta: str, fasta: str,
+                    work: str) -> list:
+    """15a: every MAF tool on each MAF of `mafs` (name -> path, its
+    genomes' FASTA files in `fastas[name]`), then ``sortdelta`` on `delta`
+    and ``fastafmt`` on `fasta`, through ``cli.main``, writing under
+    `work`; one `_host_step` row per command and input."""
+    steps = []
+    for name, maf in mafs.items():
+        d = os.path.join(work, name)
+        os.makedirs(d)
+        stat, defrag, edges, filled, clean = (
+            os.path.join(d, f) for f in ("stat", "defrag.maf", "edges", "filled.maf",
+                                         "clean.maf")
+        )
+        for tool, argv, outputs in (
+            ("mafstat", ["mafstat", maf, "-out_dir", stat],
+             [os.path.join(stat, "core_genome"), os.path.join(stat, "missing")]),
+            ("mafvalidate", ["mafvalidate", maf], []),
+            ("mafdefrag", ["mafdefrag", maf, defrag, "-synchain", edges], [defrag, edges]),
+            ("maffiller", ["maffiller", maf, *fastas[name], "-out_maf", filled], [filled]),
+            ("analyzer", ["analyzer", maf], []),
+            ("mafclean", ["mafclean", maf, clean], [clean]),
+            ("maf_to_xmfa", ["profiles", "maf_to_xmfa", "-in_maf", maf], []),
+        ):
+            steps.append(_host_step(cli, f"{name}/{tool}", [argv], outputs))
+    sorted_delta = os.path.join(work, "sorted.delta")
+    steps.append(_host_step(cli, "headline/sortdelta", [["sortdelta", delta, sorted_delta]],
+                            [sorted_delta]))
+    steps.append(_host_step(cli, "headline/fastafmt", [["fastafmt", fasta]]))
+    return steps
+
+
+def profile_chain_steps(m, halves: list, work: str, device_args: list) -> list:
+    """15b, the profile toolchain of a tree merge through ``m.cli.main``:
+    ``align -sequential`` of each half of the genomes (`halves`, two lists
+    of FASTA paths), ``profiles make`` of each MAF, ``nucmer`` of every
+    cross pair (left genome as reference), ``profiles translate`` of those
+    deltas into the two profile sets, the MAF of the translated entries
+    as the merge step makes it (`select_consistent`, then
+    `delta_to_maf_blocks` over the two ``sequences.fasta``), ``profiles
+    untranslate`` of it back to genome coordinates and ``mafvalidate`` of
+    the result.  `device_args` go to ``align`` and ``nucmer``."""
+    cli = m.cli
+    os.makedirs(work)
+    steps, dirs = [], []
+    for side, paths in zip(("left", "right"), halves):
+        maf = os.path.join(work, f"{side}.maf")
+        argv = ["align", "-sequential", *paths, "-out_maf", maf, *device_args]
+        steps.append(_host_step(cli, f"profiles/align_{side}", [argv], [maf]))
+        dirs.append(os.path.join(work, side))
+        argv = ["profiles", "make", "-basename", side, "-out_dir", dirs[-1], "-in_maf", maf]
+        steps.append(_host_step(cli, f"profiles/make_{side}", [argv], [
+            os.path.join(dirs[-1], "profiles"), os.path.join(dirs[-1], "sequences.fasta")]))
+    deltas, argvs = [], []
+    for a in halves[0]:
+        for b in halves[1]:
+            deltas.append(os.path.join(
+                work, f"{os.path.basename(a)}~{os.path.basename(b)}.delta"))
+            argvs.append(["nucmer", "-ref_seq", a, "-query_seq", b,
+                          "-out_delta", deltas[-1], *device_args])
+    steps.append(_host_step(cli, "profiles/nucmer", argvs, deltas))
+    nucmers = os.path.join(work, "nucmers.list")
+    with open(nucmers, "w") as f:
+        f.write("\n".join(deltas) + "\n")
+    translated = os.path.join(work, "translated.delta")
+    argv = ["profiles", "translate", *dirs, "-nucmer_list", nucmers, "-out_delta", translated]
+    steps.append(_host_step(cli, "profiles/translate", [argv], [translated]))
+    pseudo = os.path.join(work, "pseudo.maf")
+    t0 = time.perf_counter()
+    kept, _ = m.select_consistent(list(m.read_delta(translated)), min_length=10)
+    cons = [dict(m.read_fasta(os.path.join(d, "sequences.fasta"))) for d in dirs]
+    m.write_maf(pseudo, m.delta_to_maf_blocks(kept, *cons))
+    steps.append({"step": "profiles/merge_maf", "wall_s": time.perf_counter() - t0,
+                  "rcs": [], "sha256": file_sha256(pseudo), "entries": len(kept)})
+    dir_list = os.path.join(work, "dirs.list")
+    with open(dir_list, "w") as f:
+        f.write("\n".join(dirs) + "\n")
+    untranslated = os.path.join(work, "untranslated.maf")
+    argv = ["profiles", "untranslate", "-profile_paths_list", dir_list,
+            "-in_maf", pseudo, "-out_maf", untranslated]
+    steps.append(_host_step(cli, "profiles/untranslate", [argv], [untranslated]))
+    steps.append(_host_step(cli, "profiles/mafvalidate", [["mafvalidate", untranslated]]))
+    return steps
+
+
+def host_tools_phase(device, kept: str, smi: str) -> None:
+    """15: the host-only commands on what phases 3, 5 and 6 wrote to
+    `kept` (15a), then the profile toolchain over two halves of phase 5's
+    family with ``align`` and ``nucmer`` on the card (15b); every step's
+    digest must equal the reference's (`HOST_TOOLS_SHA256`)."""
+    m = port_modules()
+    family = sorted(os.path.join(kept, "family", f"q{i}.fa") for i in range(FAMILY_COUNT))
+    with tempfile.TemporaryDirectory() as work:
+        steps = host_tool_steps(
+            m.cli,
+            {"family": os.path.join(kept, "family.maf"),
+             "realistic": os.path.join(kept, "realistic.maf")},
+            {"family": family, "realistic": _realistic_paths()},
+            os.path.join(kept, "headline.delta"), os.path.join(kept, "smoke_ref.fa"),
+            work,
+        )
+        steps += profile_chain_steps(
+            m, [family[:4], family[4:]], os.path.join(work, "profiles"),
+            ["-device", device.type],
+        )
+    for s in steps:
+        print("host_tool", json.dumps(s), flush=True)
+    wrong = [s["step"] for s in steps if HOST_TOOLS_SHA256.get(s["step"]) != s["sha256"]]
+    if wrong or set(HOST_TOOLS_SHA256) != {s["step"] for s in steps}:
+        raise AssertionError(f"host tools: {wrong} differ from the JAX reference")
+    walls = {s["step"]: s["wall_s"] for s in steps}
+    print("host_tools_walls", json.dumps({
+        "card": smi, "clock": "host wall on the card machine, one run each",
+        "family_maf": {k.split("/")[1]: v for k, v in walls.items()
+                       if k.startswith("family/")},
+        "profiles": {k.split("/")[1]: v for k, v in walls.items()
+                     if k.startswith("profiles/")},
+        "total_s": sum(walls.values()),
+    }), flush=True)
+
+
 def _profile_cli(name: str, argv: list, out: str, digest_of, digest: str) -> dict:
     """One CLI run traced (`_profile_run`); ``digest_of(out)`` must equal
     `digest` after the traced run."""
@@ -2453,9 +2675,12 @@ def main(argv: list[str]) -> int:
     from paramugsy_tpu_torch.ops import engines
 
     # Each path from here on: counters zeroed just before, read just after.
+    # Phases 3, 5 and 6 leave their outputs in `kept` for phase 15.
+    kept_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_kept_")
+    kept = kept_dir.name
     engines.reset_counts()
     _zero_launches()
-    headline_phase(device)
+    headline_phase(device, kept)
     island_phase(device)
     pair_launches = _launch_counts()
     print("main_path_launches", json.dumps({"pairwise": pair_launches}), flush=True)
@@ -2463,12 +2688,12 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"a kernel of the path never launched: {pair_launches}")
 
     _zero_launches()
-    family_row = family_phase(device)
+    family_row = family_phase(device, kept)
     family_launches = _launch_counts()
     print("main_path_launches", json.dumps({"family": family_launches}), flush=True)
 
     _zero_launches()
-    realistic_row = realistic_phase(device)
+    realistic_row = realistic_phase(device, kept)
     refine_launches = _launch_counts()
     print("main_path_launches", json.dumps({"realistic": refine_launches}), flush=True)
     if min(refine_launches.values()) <= 0:
@@ -2548,10 +2773,21 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"K1/K2 never launched on the sharded path: {sharded_launches}")
     print_sharded_walls(smi, executor_rows, distributed_rows, sharded_rows)
 
+    # Phase 15: the host-only commands on the outputs of phases 3, 5 and 6,
+    # and the profile toolchain with align and nucmer on the card.  No
+    # kernel of their own; the counts say whether their device steps
+    # launched K1/K2.
+    _zero_launches()
+    host_tools_phase(device, kept, smi)
+    kept_dir.cleanup()
+    host_launches = _launch_counts()
+    print("main_path_launches", json.dumps({"host_tools": host_launches}), flush=True)
+
     launches = {
         k: pair_launches[k] + family_launches[k] + refine_launches[k]
         + windowed_launches[k] + self_launches[k] + executor_launches[k]
         + mugsy_launches[k] + distributed_launches[k] + sharded_launches[k]
+        + host_launches[k]
         for k in pair_launches
     }
     k4_main = next(r for r in banded["k4"] if r["width"] == 512)

@@ -1,9 +1,9 @@
 """Command-line entry of the port (counterpart of paramugsy_tpu.cli).
 
-The reference's device subcommands are ported: the pairwise one, the
-multiple alignment (``local`` is another name for ``align``, as in the
-reference, and ``sge`` is ``align -distributed``), the merge over
-precomputed pairwise MAFs and the genome-vs-self repeats:
+Every command of the reference is ported.  The device subcommands: the
+pairwise one, the multiple alignment (``local`` is another name for
+``align``, as in the reference, and ``sge`` is ``align -distributed``), the
+merge over precomputed pairwise MAFs and the genome-vs-self repeats:
 
     python -m paramugsy_tpu_torch.cli nucmer -ref_seq a.fa -query_seq b.fa \\
         -out_delta o.delta [-out_maf o.maf] [-device cuda|cpu]
@@ -30,6 +30,13 @@ exchange them through one shared ``-tmp_dir``, and every rank writes its
 own ``-out_maf``.  The sharded data plane (tensors across ranks,
 `parallel.collective.align_fastas_sharded`) has no command, as in the
 reference: it is reached through its Python API.
+
+The host-only commands run on the host, as in the reference, and take no
+``-device``: ``profiles {make,translate,untranslate,maf_to_xmfa,
+fasta_to_maf}`` (the profile toolchain of the tree merge) and the MAF and
+delta tools ``mafstat``, ``mafvalidate``, ``mafdefrag`` (also ``stitch``),
+``maffiller``, ``analyzer``, ``mafclean``, ``fastafmt`` and ``sortdelta``
+(`tools/`).  Their code, flags and output are the reference's.
 """
 from __future__ import annotations
 
@@ -348,23 +355,130 @@ def _repeats_main(argv: list[str]) -> int:
     return 0
 
 
+def _profiles_main(argv: list[str]) -> int:
+    import argparse
+
+    if not argv:
+        print(
+            "usage: paramugsy-tpu profiles {make,translate,untranslate,"
+            "maf_to_xmfa,fasta_to_maf} ...",
+            file=sys.stderr,
+        )
+        return 2
+    sub, rest = argv[0], argv[1:]
+    ap = argparse.ArgumentParser(prog=f"paramugsy-tpu profiles {sub}")
+    if sub == "make":
+        ap.add_argument("-basename", required=True)
+        ap.add_argument("-out_dir", required=True)
+        ap.add_argument("-in_maf", required=True)
+        a = ap.parse_args(rest)
+        from paramugsy_tpu_torch.profiles.make import profile_set_of_maf
+
+        profile_set_of_maf(a.in_maf, a.out_dir, a.basename)
+        return 0
+    if sub == "translate":
+        ap.add_argument("left_dir")
+        ap.add_argument("right_dir")
+        ap.add_argument("-nucmer_list", required=True)
+        ap.add_argument("-out_delta", required=True)
+        a = ap.parse_args(rest)
+        from paramugsy_tpu_torch.profiles.translate import translate
+
+        with open(a.nucmer_list) as f:
+            nucmers = [l.strip() for l in f if l.strip()]
+        with open(a.out_delta, "w") as out:
+            translate(a.left_dir, a.right_dir, nucmers, out)
+        return 0
+    if sub == "untranslate":
+        ap.add_argument("-profile_paths_list", required=True)
+        ap.add_argument("-in_maf", required=True)
+        ap.add_argument("-out_maf", required=True)
+        a = ap.parse_args(rest)
+        from paramugsy_tpu_torch.formats.maf import MAF_HEADER, write_maf
+        from paramugsy_tpu_torch.profiles.untranslate import untranslate
+
+        with open(a.profile_paths_list) as f:
+            dirs = [l.strip() for l in f if l.strip()]
+        blocks = list(untranslate(dirs, a.in_maf))
+        write_maf(a.out_maf, blocks, header=MAF_HEADER)
+        return 0
+    if sub == "maf_to_xmfa":
+        ap.add_argument("-in_maf", required=True)
+        a = ap.parse_args(rest)
+        from paramugsy_tpu_torch.formats.maf import maf_to_xmfa
+
+        maf_to_xmfa(a.in_maf, sys.stdout)
+        return 0
+    if sub == "fasta_to_maf":
+        ap.add_argument("-in_fasta", required=True)
+        ap.add_argument("-out_maf", required=True)
+        a = ap.parse_args(rest)
+        from paramugsy_tpu_torch.formats.maf import fasta_to_maf
+
+        with open(a.out_maf, "w") as f:
+            fasta_to_maf(a.in_fasta, f)
+        return 0
+    print(f"unknown profiles subcommand: {sub}", file=sys.stderr)
+    return 2
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "nucmer":
-        return _nucmer_main(argv[1:])
-    if argv and argv[0] in ("align", "local"):
-        return _align_main(argv[1:])
-    if argv and argv[0] == "sge":
-        return _sge_main(argv[1:])
-    if argv and argv[0] == "mugsy":
-        return _mugsy_main(argv[1:])
-    if argv and argv[0] == "repeats":
-        return _repeats_main(argv[1:])
+    if not argv:
+        return _usage()
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "nucmer":
+        return _nucmer_main(rest)
+    if cmd in ("align", "local"):
+        return _align_main(rest)
+    if cmd == "sge":
+        return _sge_main(rest)
+    if cmd == "mugsy":
+        return _mugsy_main(rest)
+    if cmd == "repeats":
+        return _repeats_main(rest)
+    if cmd == "profiles":
+        return _profiles_main(rest)
+    if cmd == "mafstat":
+        from paramugsy_tpu_torch.tools.mafstat import main as m
+
+        return m(rest)
+    if cmd == "mafvalidate":
+        from paramugsy_tpu_torch.tools.mafvalidate import main as m
+
+        return m(rest)
+    if cmd in ("mafdefrag", "stitch"):
+        from paramugsy_tpu_torch.tools.stitch import main as m
+
+        return m(rest)
+    if cmd == "maffiller":
+        from paramugsy_tpu_torch.tools.maffiller import main as m
+
+        return m(rest)
+    if cmd == "analyzer":
+        from paramugsy_tpu_torch.tools.maf_analyzer import main as m
+
+        return m(rest)
+    if cmd == "mafclean":
+        from paramugsy_tpu_torch.tools.misc import mafclean_main as m
+
+        return m(rest)
+    if cmd == "fastafmt":
+        from paramugsy_tpu_torch.tools.misc import fastafmt_main as m
+
+        return m(rest)
+    if cmd == "sortdelta":
+        from paramugsy_tpu_torch.tools.misc import sort_delta_main as m
+
+        return m(rest)
+    return _usage()
+
+
+def _usage() -> int:
     print(
         "usage: python -m paramugsy_tpu_torch.cli "
-        "nucmer|align|local|sge|mugsy|repeats ... (the host-only subcommands, "
-        "profiles and the MAF tools, are not ported yet; see ROADMAP.md "
-        "queue A, A10b-2)",
+        "nucmer|align|local|sge|mugsy|repeats|profiles|mafstat|mafvalidate|"
+        "mafclean|fastafmt|mafdefrag|maffiller|analyzer|sortdelta ...",
         file=sys.stderr,
     )
     return 2

@@ -4,7 +4,8 @@ boundary: no module of paramugsy_tpu_torch imports JAX or the JAX package
 windowed ``align_pair``, ``align -sequential -refine``, ``repeats``,
 ``align -sequential -duplications``, ``align`` on the concurrent
 executor with ``-tmp_dir``, ``mugsy`` and ``align -distributed``, and no
-import statement in its sources names them."""
+import statement in its sources names them.  The host-only commands
+(``mafstat``, ``profiles make``) do not even import torch."""
 import io
 import os
 import subprocess
@@ -109,20 +110,32 @@ def test_port_sources_import_neither_jax_nor_the_reference():
     sources = []
     for dirpath, _, files in os.walk(os.path.join(ROOT, "paramugsy_tpu_torch")):
         sources += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
-    assert len(sources) >= 41
+    assert len(sources) >= 59
     assert os.path.join(ROOT, "paramugsy_tpu_torch", "runtime", "dist.py") in sources
     for name in ("wire", "mesh", "pair_shard", "collective"):
         assert os.path.join(ROOT, "paramugsy_tpu_torch", "parallel", f"{name}.py") in sources
+    for name in ("__init__", "synchain", "mafvalidate", "stitch", "maffiller",
+                 "maf_analyzer", "mafstat", "misc"):
+        assert os.path.join(ROOT, "paramugsy_tpu_torch", "tools", f"{name}.py") in sources
+    assert os.path.join(ROOT, "paramugsy_tpu_torch", "lcb", "exact.py") in sources
     for path in sources:
         bad = _imported_tops(path) & {"jax", "jaxlib", "paramugsy_tpu"}
         assert not bad, (os.path.relpath(path, ROOT), bad)
 
 
 def test_cli_unknown_subcommand_returns_2(capsys):
-    """A name that no command of the reference has, and no command."""
+    """A name that no command of the reference has, and no command: the
+    usage line names every command, the reference's and ``sge``."""
     assert port_cli.main(["blastz"]) == 2
     assert port_cli.main([]) == 2
-    assert "nucmer|align|local|sge|mugsy|repeats" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "nucmer|align|local|sge|mugsy|repeats" in err
+    usage = err.splitlines()[-1].split()[-2].split("|")
+    assert sorted(usage) == sorted([
+        "align", "local", "sge", "nucmer", "mugsy", "repeats", "profiles",
+        "mafstat", "mafvalidate", "mafclean", "fastafmt", "mafdefrag",
+        "maffiller", "analyzer", "sortdelta",
+    ])
 
 
 _NO_JAX = r"""
@@ -131,6 +144,22 @@ args = sys.argv[1:]
 
 def reference_modules():
     return sorted(m for m in sys.modules if m == "paramugsy_tpu" or m.startswith("paramugsy_tpu."))
+
+# The host-only commands first, in a process that has imported nothing of
+# the port: they import neither jax, nor the reference, nor torch (so no
+# kernel is built or loaded).
+for argv in (["mafstat", "tests/data/highly_stitchable.maf", "-out_dir", args[18]],
+             ["profiles", "make", "-basename", "p", "-out_dir", args[19],
+              "-in_maf", "tests/data/highly_stitchable.maf"]):
+    sys.argv = ["cli", *argv]
+    try:
+        runpy.run_module("paramugsy_tpu_torch.cli", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    assert "jax" not in sys.modules, argv[0] + " pulled in jax"
+    assert not reference_modules(), (argv[0], reference_modules())
+    assert "paramugsy_tpu_torch.ops._kernels" not in sys.modules, argv[0]
+    assert "torch" not in sys.modules, argv[0] + " imported torch"
 
 import paramugsy_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
@@ -254,7 +283,8 @@ def test_port_never_imports_jax(tmp_path):
          str(tmp_path / "pair.maf"), str(tmp_path / "seqs.list"),
          str(tmp_path / "mafs.list"), str(tmp_path / "mugsy"),
          str(tmp_path / "dist_store"), str(tmp_path / "dist.maf"),
-         str(tmp_path / "sharded.maf")],
+         str(tmp_path / "sharded.maf"), str(tmp_path / "mafstat"),
+         str(tmp_path / "profiles")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr
@@ -267,6 +297,10 @@ def test_port_never_imports_jax(tmp_path):
     assert os.listdir(tmp_path / "store" / "pairs") == ["genome_a~genome_b.delta"]
     mugsy = (tmp_path / "mugsy" / "mugsy.maf").read_text()
     assert mugsy.startswith("##maf") and "mult=2" in mugsy
-    assert res.stdout.splitlines()[0] == str(tmp_path / "mugsy" / "mugsy.maf")
+    assert res.stdout.splitlines()[:2] == [
+        "num_genomes=4 core=80", str(tmp_path / "mugsy" / "mugsy.maf")]
     assert (tmp_path / "dist.maf").read_bytes() == (tmp_path / "conc.maf").read_bytes()
     assert (tmp_path / "sharded.maf").read_bytes() == (tmp_path / "conc.maf").read_bytes()
+    assert "core\t80\n" in (tmp_path / "mafstat" / "core_genome").read_text()
+    assert (tmp_path / "profiles" / "profiles").read_text()
+    assert (tmp_path / "profiles" / "sequences.fasta").read_text().startswith(">p.p_0000\n")
